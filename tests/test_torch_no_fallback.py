@@ -1,0 +1,117 @@
+"""The port hides neither the device nor the kernels.
+
+* ``vq_tpu_torch`` never imports jax (checked in a fresh interpreter).
+* Asking for ``cuda`` without a card raises; nothing falls back to the CPU.
+* A quantizer built without a device takes its corpus's; a tensor on
+  another device than the CPU is never copied to it (``meta`` stands in
+  for a card here).
+* The kernel build raises when ``nvcc`` is missing.
+* A CPU tensor runs the plain versions and leaves the launch counters at 0.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from vq_tpu.core.config import KMeansConfig, Metric, PQConfig
+from vq_tpu_torch import _device
+from vq_tpu_torch.kernels import _build
+from vq_tpu_torch.kernels import pq_scan as ps
+from vq_tpu_torch.kernels.adc import scan_codes_topk
+from vq_tpu_torch.methods.pq import PQ
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parents[1]
+
+_NO_JAX = """
+import sys
+import numpy as np
+from vq_tpu.core.config import KMeansConfig, PQConfig
+from vq_tpu_torch.index.flat import FlatQuantizedIndex
+from vq_tpu_torch.methods.pq import PQ
+x = np.random.default_rng(0).standard_normal((600, 16)).astype(np.float32)
+idx = FlatQuantizedIndex(PQ(PQConfig(4, 4, KMeansConfig(iters=2)))).fit(x)
+ids = idx.search(x[:5], 3)
+assert ids.shape == (5, 3), ids.shape
+loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+assert not loaded, loaded
+print("ok")
+"""
+
+
+def test_port_never_imports_jax():
+    out = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "ok"
+
+
+def test_cuda_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        _device.resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        PQ(PQConfig(4, 4), device="cuda")
+
+
+def test_quantizer_takes_the_device_of_its_corpus():
+    x = np.random.default_rng(0).standard_normal((600, 16)).astype(np.float32)
+    cfg = PQConfig(4, 4, KMeansConfig(iters=2))
+    for data in (x, torch.from_numpy(x)):
+        pq = PQ(cfg)
+        assert pq.device is None
+        assert pq.fit(data).device == torch.device("cpu")
+        assert pq.params.codebooks.device.type == "cpu"
+
+
+def test_device_tensors_never_leave_their_device():
+    t = torch.zeros((600, 16), device="meta")
+    with pytest.raises(ValueError, match="given to code on cpu"):
+        _device.as_f32(t, "cpu")
+    with pytest.raises(ValueError, match="given to code on cpu"):
+        PQ(PQConfig(4, 4, KMeansConfig(iters=2)), device="cpu").fit(t)
+    assert _device.as_f32(np.zeros((2, 2)), "meta").device.type == "meta"  # host data moves
+
+
+def test_bf16_only_on_cuda():
+    assert not _device.bf16_supported("cpu")
+    assert _device.bf16_supported("cuda")
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build_library()
+    _build.load_library.cache_clear()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load_library()
+    _build.load_library.cache_clear()
+
+
+def test_cpu_tensors_run_plain_versions_without_launches():
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.standard_normal((6, 32)).astype(np.float32))
+    codes = torch.from_numpy(rng.integers(0, 256, (700, 4)).astype(np.uint8))
+    cb = torch.from_numpy(rng.standard_normal((4, 256, 8)).astype(np.float32))
+    ps.reset_launch_counts()
+    s = ps.pq_score_all(q, codes, cb)
+    torch.testing.assert_close(s, ps.pq_score_all_plain(q, codes, cb), rtol=0, atol=0)
+    ts, ti = ps.pq_scan_topk_fused(q, codes, cb, 10, limit=600)
+    ws, wi = ps.pq_scan_topk_fused_plain(q, codes, cb, 10, limit=600)
+    assert torch.equal(ti, wi) and torch.equal(ts, ws)
+    for k in (10, 100):  # both routes of scan_codes_topk
+        scan_codes_topk(q, codes, cb, k, Metric.L2)
+    assert ps.pq_score_all.launches == 0 and ps.pq_scan_topk_fused.launches == 0
+
+
+def test_wrappers_refuse_other_devices():
+    t = torch.zeros((4, 4), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ps.pq_score_all(t, t.to(torch.uint8), t.reshape(4, 1, 4))

@@ -1,0 +1,111 @@
+"""The port's PQ scan kernels (kernels/pq_scan.py) against the JAX Pallas
+kernels (vq_tpu/kernels/pallas_scan.py) run in interpret mode on the CPU.
+
+On the CPU the port's wrappers run their plain PyTorch versions; both sides
+round queries and codebooks to bf16 and accumulate in f32 (the TPU kernel's
+mode), so scores agree to f32 summation order: 1e-5 relative to the score
+scale.  Ids must be equal, in lax.top_k's order (score desc, id asc).
+
+The CUDA kernels themselves run only on a card: tests/test_torch_cuda.py
+compares them with the plain versions there.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vq_tpu.kernels import pallas_scan as jps
+from vq_tpu_torch.kernels import pq_scan as tps
+
+torch.set_num_threads(1)
+
+TILE = 256
+
+
+def _setup(n=2048, d=64, q=16, m=8, kk=16, seed=0):
+    rng = np.random.default_rng(seed)
+    queries = rng.standard_normal((q, d)).astype(np.float32)
+    codes = rng.integers(0, kk, (n, m)).astype(np.uint8)
+    cb = rng.standard_normal((m, kk, d // m)).astype(np.float32)
+    return queries, codes, cb
+
+
+def _both(queries, codes, cb):
+    j = (jnp.asarray(queries), jnp.asarray(codes), jnp.asarray(cb))
+    t = (torch.from_numpy(queries), torch.from_numpy(codes), torch.from_numpy(cb))
+    return j, t
+
+
+def _scale(s):
+    return 1e-5 * float(np.abs(s).max())
+
+
+@pytest.mark.parametrize("l2", [True, False])
+def test_pq_score_all_matches_pallas(l2):
+    j, t = _both(*_setup(seed=1))
+    want = np.asarray(jps.pq_score_all(*j, tile=TILE, l2=l2, interpret=True))
+    got = tps.pq_score_all(*t, l2=l2, use_bf16=True).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=_scale(want))
+
+
+@pytest.mark.parametrize("k", [5, 7, 32, 100])
+def test_pq_scan_topk_fused_matches_pallas(k):
+    """k < 32 and k ≥ 32 take the two fold variants of the TPU kernel."""
+    j, t = _both(*_setup(seed=2))
+    ws, wi = jps.pq_scan_topk_fused(*j, k=k, tile=TILE, l2=True, interpret=True)
+    gs, gi = tps.pq_scan_topk_fused(*t, k, l2=True, use_bf16=True)
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    np.testing.assert_allclose(gs.numpy(), np.asarray(ws), rtol=0, atol=_scale(ws))
+
+
+@pytest.mark.parametrize("limit", [300, 3])
+def test_pq_scan_topk_fused_limit_matches_pallas(limit):
+    """Rows at or past `limit` are masked; with limit < k the tail of the
+    result is −inf with id 0."""
+    k = 5
+    j, t = _both(*_setup(n=512, seed=3))
+    ws, wi = jps.pq_scan_topk_fused(*j, k=k, tile=TILE, l2=False, limit=jnp.int32(limit),
+                                    interpret=True)
+    gs, gi = tps.pq_scan_topk_fused(*t, k, l2=False, limit=limit, use_bf16=True)
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    assert np.all(gi.numpy() < max(limit, 1))
+    if limit < k:
+        assert np.all(np.isneginf(gs.numpy()[:, limit:]))
+        assert np.all(gi.numpy()[:, limit:] == 0)
+    np.testing.assert_array_equal(np.isneginf(gs.numpy()), np.isneginf(np.asarray(ws)))
+
+
+@pytest.mark.parametrize("k", [6, 40])
+def test_pq_scan_topk_fused_planted_ties_match_pallas(k):
+    """Every row identical: all scores tie, ids must come out 0..k-1."""
+    rng = np.random.default_rng(4)
+    codes = np.repeat(rng.integers(0, 16, (1, 8)), 512, axis=0).astype(np.uint8)
+    queries = rng.standard_normal((4, 64)).astype(np.float32)
+    cb = rng.standard_normal((8, 16, 8)).astype(np.float32)
+    j, t = _both(queries, codes, cb)
+    _, wi = jps.pq_scan_topk_fused(*j, k=k, tile=TILE, l2=True, interpret=True)
+    _, gi = tps.pq_scan_topk_fused(*t, k, l2=True, use_bf16=True)
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    np.testing.assert_array_equal(gi.numpy(), np.tile(np.arange(k), (4, 1)))
+
+
+def test_plain_f32_mode_is_exact_decode_matmul():
+    """use_bf16=False scores are the f32 decode-then-matmul scores."""
+    queries, codes, cb = _setup(seed=5)
+    _, t = _both(queries, codes, cb)
+    dec = cb[np.arange(8), codes.astype(np.int64)].reshape(len(codes), -1)
+    want = 2.0 * queries @ dec.T - np.sum(dec * dec, axis=1)[None]
+    got = tps.pq_score_all(*t, l2=True, use_bf16=False).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=_scale(want))
+
+
+def test_wrapper_validates_inputs_before_launch():
+    _, t = _both(*_setup(seed=6))
+    q, codes, cb = t
+    with pytest.raises(ValueError, match="k="):
+        tps._check_inputs(q, codes, cb, k=129)
+    with pytest.raises(ValueError, match="codes must be"):
+        tps._check_inputs(q, codes.to(torch.int32), cb)
+    with pytest.raises(ValueError, match="shapes disagree"):
+        tps._check_inputs(q[:, :32].contiguous(), codes, cb)

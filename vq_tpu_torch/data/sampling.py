@@ -1,0 +1,40 @@
+"""Row subsampling for fits — counterpart of ``vq_tpu/data/sampling.py``.
+
+A fit trains on at most ``cap`` rows, so it never needs the whole corpus on
+the device: a tensor is sampled where it lives (on the card, without a host
+round trip), numpy / np.memmap / array-like corpora on the host with the
+same sorted ``default_rng(seed)`` draw as the JAX package, so both packages
+train on the same rows of a host corpus.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from vq_tpu_torch._device import make_generator
+
+
+def host_sample_rows(x, cap: int, seed: int = 0):
+    """Return ≤cap rows of x as float32: a tensor for tensor input (sampled
+    on its device), numpy otherwise (sorted indices keep mmap reads
+    sequential)."""
+    n = x.shape[0]
+    if isinstance(x, torch.Tensor):
+        if n <= cap:
+            return x.to(torch.float32)
+        idx = torch.randperm(n, generator=make_generator(seed, x.device),
+                             device=x.device)[:cap]
+        return x[torch.sort(idx).values].to(torch.float32)
+    if n <= cap:
+        rows = x[:]
+    else:
+        rng = np.random.default_rng(seed)
+        rows = x[np.sort(rng.choice(n, cap, replace=False))]
+    return np.asarray(rows, dtype=np.float32)
+
+
+def chunk_rows_for_bytes(dim: int, itemsize: int = 4,
+                         budget_bytes: int = 1 << 28) -> int:
+    """Rows per chunk so one host→device transfer stays ≤ budget (256 MB)."""
+    return max(1024, budget_bytes // max(1, dim * itemsize))

@@ -1,0 +1,104 @@
+"""Build and load the port's CUDA kernels (``vq_tpu_torch/csrc/*.cu``).
+
+The sources are compiled with ``nvcc`` for ``sm_90a`` into a shared library
+with a plain C interface and loaded with ctypes.  The build happens at first
+use, from the sources in the package only, into ``vq_tpu_torch/_build/``
+(git-ignored); the library's name carries a hash of the sources, so an
+edited source is rebuilt and an unchanged one is loaded as it is.  A missing
+``nvcc`` or a failed compile raises: there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+_CUDA_HOME_DEFAULT = "/usr/local/cuda"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def find_nvcc() -> str:
+    """``nvcc`` from PATH, else ``$CUDA_HOME/bin``, else /usr/local/cuda/bin."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or _CUDA_HOME_DEFAULT
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the CUDA "
+        "kernels of vq_tpu_torch cannot be built"
+    )
+
+
+def build_library() -> Path:
+    """Compile the sources if their hash has no library yet; return its path.
+
+    The compiler's report (``-Xptxas -v``: registers, shared memory and
+    spills per kernel) is kept beside the library as ``<name>.log``.
+    """
+    srcs = _sources()
+    digest = hashlib.sha256()
+    for s in srcs:
+        digest.update(s.read_bytes())
+    lib = BUILD_DIR / f"libvq_tpu_torch_{digest.hexdigest()[:16]}.so"
+    if lib.is_file():
+        return lib
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # compile to a temporary name and rename: a concurrent build never
+    # loads a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+           "-Xptxas", "-v", "-o", tmp, *map(str, srcs)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    lib.with_suffix(".log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    os.replace(tmp, lib)
+    return lib
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "vq_sort_cap": [],
+    "vq_merge_cap": [],
+    "vq_pq_lut": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "vq_pq_score_all": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "vq_pq_scan_topk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+}
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build (first use) and load the kernels' library, with every C
+    function's argtypes declared (pointers and the stream as c_void_p)."""
+    lib = ctypes.CDLL(str(build_library()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")

@@ -1,0 +1,109 @@
+"""Quantizer interface — counterpart of ``vq_tpu/methods/base.py``.
+
+A concrete method is a small stateful class over plain functions on
+tensors (``fit → params``, ``encode(params, X) → codes``,
+``decode(params, codes) → x̂``); ``params`` is a NamedTuple of tensors on
+the quantizer's ``device``.  ``compress``/``decompress`` return tensors on
+that device.  A quantizer built without a device takes the device of the
+tensor it is fitted on (the CPU for numpy input); a tensor on a card is
+never copied to another device (``_device.to_device`` raises).
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+from typing import Any, Dict, Optional
+
+import torch
+
+from vq_tpu_torch._device import as_f32, resolve_device
+
+
+class BaseQuantizer:
+    """Common harness-facing interface for all quantization methods."""
+
+    name: str = "base"
+
+    def __init__(self, device=None):
+        self.params = None
+        self._dim: Optional[int] = None
+        self.device = None if device is None else resolve_device(device)
+
+    def _bind_device(self, X) -> torch.device:
+        """Fix the device at fit time when none was given: X's, or the CPU."""
+        if self.device is None:
+            self.device = X.device if isinstance(X, torch.Tensor) else torch.device("cpu")
+        return self.device
+
+    # -- to implement ------------------------------------------------------
+    def fit(self, X) -> "BaseQuantizer":
+        raise NotImplementedError
+
+    def compress(self, X) -> torch.Tensor:
+        raise NotImplementedError
+
+    def decompress(self, codes) -> torch.Tensor:
+        raise NotImplementedError
+
+    def code_bytes_per_vector(self) -> float:
+        """Bytes of code storage per vector (incl. per-vector side-channels)."""
+        raise NotImplementedError
+
+    def decode_fn(self):
+        """Return a ``codes_tile → (T, D)`` decoder; it plugs every method into
+        the generic decode→score→top-k scan (``kernels/adc.py``)."""
+        raise NotImplementedError
+
+    # -- provided ----------------------------------------------------------
+    def scan_topk(self, queries, codes, k: int, metric, norms=None,
+                  tile_rows: int = 16384, use_bf16: bool = True, cache=None,
+                  num_valid=None):
+        """ADC search over this method's codes (tensors in and out).  ``cache``
+        is what ``prepare_scan`` returned (unused by the generic path)."""
+        from vq_tpu_torch.kernels.adc import scan_generic_topk
+
+        return scan_generic_topk(queries, codes, self.decode_fn(), k, metric, norms,
+                                 tile_rows, use_bf16, num_valid=num_valid)
+
+    def prepare_scan(self, codes, norms=None, num_queries=8):
+        """Optionally build a scan-optimized corpus layout once at index fit;
+        None means "scan the stored rows directly"."""
+        return None
+
+    @property
+    def dim(self) -> Optional[int]:
+        return self._dim
+
+    def get_compression_ratio(self, X) -> float:
+        """float32 input bytes / code bytes."""
+        return X.shape[1] * 4.0 / self.code_bytes_per_vector()
+
+    def reconstruction_mse(self, X, sample: Optional[int] = None) -> float:
+        xs = X if sample is None or len(X) <= sample else X[:sample]
+        x = as_f32(xs, self.device)
+        rec = self.decompress(self.compress(x))
+        return float(torch.mean((x - rec) ** 2))
+
+    def config_dict(self) -> Dict[str, Any]:
+        return {}
+
+    # -- persistence -------------------------------------------------------
+    def save(self, path: str) -> None:
+        """Persist params as a pickle of host numpy arrays."""
+        host = type(self.params)(*(t.cpu().numpy() for t in self.params))
+        payload = {"name": self.name, "dim": self._dim, "params": host,
+                   "config": self.config_dict()}
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "wb") as f:
+            pickle.dump(payload, f)
+
+    def load(self, path: str) -> "BaseQuantizer":
+        with open(path, "rb") as f:
+            payload = pickle.load(f)
+        self._dim = payload["dim"]
+        host = payload["params"]
+        if self.device is None:
+            self.device = torch.device("cpu")
+        self.params = type(host)(*(torch.as_tensor(a, device=self.device) for a in host))
+        return self
