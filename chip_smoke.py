@@ -7,26 +7,40 @@ Phases (any failure exits non-zero; nothing is caught):
 
 1. Device: the card's name and power limit (nvidia-smi), CUDA required,
    TF32 off.
-2. Build the CUDA kernels of ``vq_tpu_torch/csrc`` from the checkout.
-3. Each kernel against its plain PyTorch version on the card: edge cases
-   at small shapes, then the main path's shapes (Q=1024, D=1536, N=100,000,
-   M=16 / K=256 and M=192 / dsub=8), f32 mode on scores and ids, bf16 mode
-   on recall against the plain f32 ids; kernel and plain times.
-4. The main path — what ``vq_tpu/bench/sweep.py::run_single_config`` does:
-   PQ(M=16, B=8) fit, FlatQuantizedIndex fit (encode), ground truth by
-   ``exact_topk``, search at k=10 (fused kernel) and k=100 (score kernel +
-   streaming top-k), on a seeded power-law corpus at N=1,000,000, D=1536.
+2. Build the CUDA kernels of ``vq_tpu_torch/csrc`` from the checkout (one
+   nvcc per source, in parallel).
+3. The PQ kernels against their plain PyTorch versions on the card: edge
+   cases at small shapes, then the PQ main path's shapes (Q=1024, D=1536,
+   N=100,000, M=16 / K=256 and M=192 / dsub=8), f32 mode on scores and ids,
+   bf16 mode on recall against the plain f32 ids; kernel and plain times.
+4. The PQ main path — what ``vq_tpu/bench/sweep.py::run_single_config``
+   does: PQ(M=16, B=8) fit, FlatQuantizedIndex fit (encode), ground truth
+   by ``exact_topk``, search at k=10 (fused kernel) and k=100 (score kernel
+   + streaming top-k), on a seeded power-law corpus at N=1,000,000, D=1536.
    The kernels' launch counters must move during this phase.  The
    quantizer is built without a device and must follow the corpus onto
-   the card.  Then where the time goes: wall and device-busy ms per
-   search, the idle share and the device time per kernel (torch.profiler
-   over 5 searches), and CUDA-event times of the fused kernel at k=100 and
-   of the score kernel over the whole corpus.
+   the card.  Then where the time goes (torch.profiler over 5 searches)
+   and CUDA-event times of the fused kernel at k=100 and of the score
+   kernel over the whole corpus.
 5. Quality gate: PQ(M=192, B=8) on the planted-neighbourhood corpus
    (N=100k, D=1536), recall@10 ≥ 0.763.
+6. The packed kernel against its plain version (N=100,000 lognormal rows,
+   D=1024, Q=256): SAQ uniform and lloyd (perdim + values segments),
+   RaBitQ B=2 (shared table) and B=6 (value plane), each in L2 / IP / NIP
+   at k=10 and k=100, f32 ids and scores, bf16 recall, prune ids = dense
+   ids; every dequant kind must launch; edge cases (limit < k, limit
+   masking, N < 512, k = 1 and 128, planted ties); kernel and plain times.
+7. The SAQ path (``bench.py:248-380`` on the port): FlatQuantizedIndex(SAQ
+   bpd=2, PCA) fit, encode and norm-ordered pack, ground truth, search at
+   k=10 and k=100 on the power-law corpus (σ_i = (1+i)^-0.6, N=1,048,576,
+   D=1024, Q=256), the prune stage's scanned fraction, a torch.profiler
+   breakdown of the k=10 search; then the banded prune corpus: prune ids
+   = dense ids and a scanned fraction below 1.
+8. The RaBitQ path: FlatQuantizedIndex(RaBitQ B=2) on the same corpus
+   shape, k=10.
 
 The line before the last is a JSON object of the kernels (launches in
-phase 4, errors and times from phase 3); the last line is
+phases 4 and 7-8, errors and times from phases 3 and 6); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -276,15 +290,12 @@ def phase_kernels(torch, dev, results, n=100_000, d=1536, nq=1024):
 
 
 # ---------------------------------------------------------------- phase 4
-def profile_search(torch, index, q, reps: int = 5) -> None:
-    """torch.profiler over `reps` searches at k=10 and k=100 (wall and
-    device-busy ms per search, idle share, device ms per kernel), then
-    CUDA-event times of the fused kernel at k=100 and of the score kernel
-    over all rows (the k=100 route runs it over row tiles)."""
+def profile_search(torch, index, q, ks=(10, 100), tag="", reps: int = 5) -> None:
+    """torch.profiler over `reps` searches at each k: wall and device-busy ms
+    per search, idle share, device ms per kernel."""
     from torch.profiler import ProfilerActivity, profile
-    from vq_tpu_torch.kernels import pq_scan as ps
 
-    for k in (10, 100):
+    for k in ks:
         index.search_with_scores(q, k)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -299,15 +310,11 @@ def profile_search(torch, index, q, reps: int = 5) -> None:
                 per_kernel[e.name] = per_kernel.get(e.name, 0.0) + e.device_time / reps / 1e3
         busy = sum(per_kernel.values())
         require(busy > 0, "torch.profiler recorded no device time")
-        log(f"[profile] search k={k}: wall {wall_ms:.3f} ms/search, device busy {busy:.3f} "
-            f"ms, idle share {1 - busy / wall_ms:.3f} (torch.profiler, {reps} searches)")
+        log(f"[profile]{tag} search k={k}: wall {wall_ms:.3f} ms/search, device busy "
+            f"{busy:.3f} ms, idle share {1 - busy / wall_ms:.3f} (torch.profiler, {reps} "
+            f"searches)")
         for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]:
-            log(f"[profile]   {ms:9.3f} ms/search  {name[:100]}")
-    codes, cb = index.codes, index.quantizer.params.codebooks
-    t_fused = cuda_ms(torch, lambda: ps.pq_scan_topk_fused(q, codes, cb, 100))
-    t_score = cuda_ms(torch, lambda: ps.pq_score_all(q, codes, cb))
-    log(f"[profile] N={codes.shape[0]} bf16 (CUDA events, median of 5): pq_scan_topk_fused "
-        f"k=100 {t_fused:.3f} ms; pq_score_all over all rows {t_score:.3f} ms")
+            log(f"[profile]{tag}   {ms:9.3f} ms/search  {name[:100]}")
 
 
 def phase_main(torch, dev, n=1_000_000, d=1536, nq=1024, profile=True):
@@ -361,6 +368,14 @@ def phase_main(torch, dev, n=1_000_000, d=1536, nq=1024, profile=True):
     require(rec >= BF16_MIN_RECALL, "main path disagrees with its plain reference")
     if profile:
         profile_search(torch, index, q)
+        # CUDA-event times of the fused kernel at k=100 and of the score
+        # kernel over all rows (the k=100 route runs it over row tiles)
+        codes, cb = index.codes, pq.params.codebooks
+        t_fused = cuda_ms(torch, lambda: ps.pq_scan_topk_fused(q, codes, cb, 100))
+        t_score = cuda_ms(torch, lambda: ps.pq_score_all(q, codes, cb))
+        log(f"[profile] N={codes.shape[0]} bf16 (CUDA events, median of 5): "
+            f"pq_scan_topk_fused k=100 {t_fused:.3f} ms; pq_score_all over all rows "
+            f"{t_score:.3f} ms")
     del x, q, index, pq
     torch.cuda.empty_cache()
     return launches
@@ -384,6 +399,315 @@ def phase_gate(torch, dev, n=100_000, d=1536, nq=1024):
     log(f"[phase 5] PQ M=192 B=8 planted corpus: fit+encode {t_fit:.3f} s, "
         f"recall@10 {r:.4f} (floor {RECALL_GATE_PQ192_FLOOR})")
     require(r >= RECALL_GATE_PQ192_FLOOR, f"recall gate {r} < {RECALL_GATE_PQ192_FLOOR}")
+
+
+# ---------------------------------------------------------------- phase 6
+def packed_corpus(torch, n, d, nq, seed, dev, lognormal=False):
+    """bench.py:254-275 (and :316-341 with `lognormal`): rows N(0, diag σ²),
+    σ_i = (1+i)^-0.6, optionally times a lognormal row scale exp(0.5·N(0,1));
+    queries are corpus rows jittered by 0.1σ.  Returns (x, q, σ)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    sigma = (1.0 + torch.arange(d, device=dev, dtype=torch.float32)) ** -0.6
+    x = torch.randn((n, d), generator=g, device=dev).mul_(sigma)
+    if lognormal:
+        x.mul_(torch.exp(0.5 * torch.randn((n, 1), generator=g, device=dev)))
+    qidx = torch.randint(0, n, (nq,), generator=g, device=dev)
+    q = x[qidx] + 0.1 * sigma * torch.randn((nq, d), generator=g, device=dev)
+    return x, q, sigma
+
+
+def packed_tol(torch, a):
+    """(Q, 1) f32 tolerance of a packed scan (``a``: packed_scan_topk's
+    arguments): F32_RTOL times a bound on the magnitude of the score's terms,
+    c·‖q‖·max‖x̂‖ + |qa| (+ max |L2 shift|; over the least row norm for NIP),
+    x̂ a row's scaled values.  Kernel and plain sum the same products in
+    another order (see F32_RTOL)."""
+    from vq_tpu_torch.kernels import packed_scan as pk
+
+    fac = a["factors"]
+    n = fac.shape[1]
+    r2 = torch.zeros((n,), device=fac.device)
+    li = 0
+    for w, seg in zip(a["words"], a["segs"]):
+        lv = None
+        if seg.dequant in ("perdim", "shared"):
+            lv, li = a["lv_tables"][li], li + 1
+        for r0 in range(0, n, 16384):
+            r1 = min(n, r0 + 16384)
+            rows = w[r0:r1] if seg.dequant == "values" else w[r0 // seg.u:r1 // seg.u]
+            scale = fac[seg.scale_col, r0:r1] if seg.scale_col >= 0 else None
+            r2[r0:r1] += torch.sum(pk.dequant_seg(rows, seg, lv, scale) ** 2, dim=1)
+    qx = torch.linalg.norm(a["q_cat"], dim=1, keepdim=True) * torch.sqrt(r2.max())
+    qa = a["qa"].abs()[:, None]
+    if a["metric_kind"] == "l2":
+        shift = sum(fac[c] for c in a["r2_cols"]).abs().max()
+        return F32_RTOL * (2.0 * qx + qa + shift)
+    tol = F32_RTOL * (qx + qa)
+    if a["metric_kind"] == "nip":
+        tol = tol / torch.clamp(fac[a["norm_col"]], min=1e-30).min()
+    return tol
+
+
+def packed_configs(torch, x, q, norms):
+    """(tag, args(metric, k, use_bf16, prune, limit) → packed_scan_topk
+    arguments for the queries q, dequant kinds, quantizer, packed corpus)
+    for the four configurations of phase 6."""
+    from vq_tpu_torch import RaBitQConfig, SAQConfig
+    from vq_tpu_torch.methods import rabitq as rb
+    from vq_tpu_torch.methods import saq as sq
+
+    out = []
+    for tag, cfg in (("SAQ uniform bpd=2", SAQConfig(bits_per_dim=2.0)),
+                     ("SAQ lloyd bpd=2", SAQConfig(bits_per_dim=2.0, codebook="lloyd"))):
+        m = sq.SAQ(cfg).fit(x)
+        packed = sq.prepare_packed(m.plan, m.params, m.compress(x), norms=norms,
+                                   sort_rows=True)
+
+        def args(metric, k, bf16, prune, limit=None, m=m, packed=packed):
+            return sq.packed_scan_args(m.plan, m.params, q, packed, k, metric,
+                                       num_valid=limit, use_bf16=bf16, prune=prune)
+        kinds = {s.dequant for s in sq.packed_segspecs(m.plan, m.params)[0]}
+        out.append((f"{tag} bits={m.plan.seg_bits}", args, kinds, m, packed))
+    for bits in (2, 6):
+        m = rb.RaBitQ(RaBitQConfig(num_bits=bits)).fit(x)
+        packed = rb.prepare_packed(m.params, m.compress(x), bits, norms=norms)
+
+        def args(metric, k, bf16, prune, limit=None, m=m, packed=packed, bits=bits):
+            return rb.packed_scan_args(m.params, q, packed, k, metric, bits,
+                                       num_valid=limit, use_bf16=bf16, prune=prune)
+        out.append((f"RaBitQ B={bits}", args, {rb._packed_segspec(1, bits).dequant}, m,
+                    packed))
+    return out
+
+
+def phase_packed_edges(torch, dev, q, m, packed, codes):
+    """SAQ uniform: limit < k, limit masking, N < 512, k = 1 and 128, planted
+    ties; f32 ids must equal the plain version's where separated."""
+    from vq_tpu_torch import Metric
+    from vq_tpu_torch.kernels import packed_scan as pk
+    from vq_tpu_torch.methods import saq as sq
+
+    n = packed.num_rows
+    for k, limit in ((10, 5), (10, n - 777), (1, None), (128, None)):
+        a = sq.packed_scan_args(m.plan, m.params, q, packed, k, Metric.L2, num_valid=limit,
+                                use_bf16=False)
+        ks, ki = pk.packed_scan_topk(**a)
+        lim = limit or n
+        require(bool((ki < lim).all()), f"packed edge k={k}: ids past limit")
+        if lim < k:
+            require(bool((ks[:, lim:] == -np.inf).all() and (ki[:, lim:] == 0).all()),
+                    "packed limit < k must leave -inf / id 0")
+            continue
+        rs, ri = pk.packed_scan_topk_plain(**{**a, "k": k + 1})
+        check_topk_f32(torch, ks, ki, rs, ri, k, packed_tol(torch, a),
+                       f"packed edge k={k} limit={limit}")
+    small = sq.prepare_packed(m.plan, m.params, codes[:300])  # one tile, 212 pad rows
+    a = sq.packed_scan_args(m.plan, m.params, q, small, 10, Metric.IP, use_bf16=False)
+    ks, ki = pk.packed_scan_topk(**a)
+    rs, ri = pk.packed_scan_topk_plain(**{**a, "k": 11})
+    check_topk_f32(torch, ks, ki, rs, ri, 10, packed_tol(torch, a), "packed edge N=300")
+    same = sq.prepare_packed(m.plan, m.params, codes[:1].repeat(3000, 1))
+    for k in (6, 100):  # every row identical → ids 0..k-1 in order
+        a = sq.packed_scan_args(m.plan, m.params, q, same, k, Metric.L2, use_bf16=False)
+        require(bool((pk.packed_scan_topk(**a)[1] == torch.arange(k, device=dev)).all()),
+                "packed tie order")
+
+
+def phase_packed_kernels(torch, dev, results, n=100_000, d=1024, nq=256):
+    """The packed kernel against its plain version on the card: SAQ uniform
+    and lloyd (perdim + values), RaBitQ B=2 (shared) and B=6 (values), each
+    in L2 / IP / NIP at k=10 and 100 with prune off and on; edge cases."""
+    from vq_tpu_torch import Metric
+    from vq_tpu_torch.kernels import packed_scan as pk
+
+    t0 = time.perf_counter()
+    pk.reset_launch_counts()
+    x, q, _ = packed_corpus(torch, n, d, nq, seed=11, dev=dev, lognormal=True)
+    norms = torch.linalg.norm(x, dim=1)
+    configs = packed_configs(torch, x, q, norms)
+    log(f"[phase 6] corpus N={n} (lognormal rows) D={d} Q={nq}; 4 configurations fitted, "
+        f"encoded and packed in {time.perf_counter() - t0:.3f} s")
+    kind_launches = {"uniform": 0, "perdim": 0, "shared": 0, "values": 0}
+    r = results.setdefault("packed_scan_topk", {"max_abs_err": 0.0, "times": {}})
+    for tag, args, kinds, m, packed in configs:
+        before = pk.packed_scan_topk.launches
+        worst, n_sep, fracs, worst_rec = 0.0, 0, [], (1.0, 1.0, 1.0)
+        for metric in (Metric.L2, Metric.IP, Metric.NIP):
+            for k in (10, 100):
+                what = f"{tag} {metric.name} k={k}"
+                a = args(metric, k, False, False)
+                ks, ki = pk.packed_scan_topk(**a)
+                rs, ri = pk.packed_scan_topk_plain(**{**a, "k": k + 1})
+                err, sep, _ = check_topk_f32(torch, ks, ki, rs, ri, k, packed_tol(torch, a),
+                                             f"packed f32 {what}")
+                worst, n_sep = max(worst, err), n_sep + sep
+                ps_, pi, cnt = pk.packed_scan_topk(**args(metric, k, False, True))
+                require(torch.equal(pi, ki) and torch.equal(ps_, ks),
+                        f"packed f32 prune {what}: differs from prune off")
+                fracs.append(int(cnt) / pk.prune_units(nq, packed.factors.shape[1], dev))
+                ab = args(metric, k, True, False)
+                _, bi = pk.packed_scan_topk(**ab)
+                _, pbi = pk.packed_scan_topk_plain(**ab)
+                rec = recall(ri[:, :k].cpu(), bi.cpu(), k)
+                rec_plain = recall(ri[:, :k].cpu(), pbi.cpu(), k)
+                rec_like = recall(pbi.cpu(), bi.cpu(), k)
+                worst_rec = min(worst_rec, (rec, rec_plain, rec_like))
+                # bf16 rounding alone (the plain version) may lose more than
+                # 1% of the f32 top-k; the kernel must not lose more than it
+                require(rec_like >= BF16_MIN_RECALL and
+                        (rec >= BF16_MIN_RECALL or rec >= rec_plain - 0.005),
+                        f"packed bf16 {what}: recall vs plain f32 {rec} (plain bf16 "
+                        f"{rec_plain}), vs plain bf16 {rec_like}")
+                _, bpi, _ = pk.packed_scan_topk(**args(metric, k, True, True))
+                require(torch.equal(bpi, bi), f"packed bf16 prune {what}: differs from off")
+        for kind in kinds:
+            kind_launches[kind] += pk.packed_scan_topk.launches - before
+        a = args(Metric.L2, 10, True, False)
+        tk = cuda_ms(torch, lambda: pk.packed_scan_topk(**a))
+        tp = cuda_ms(torch, lambda: pk.packed_scan_topk_plain(**a))
+        r["max_abs_err"] = max(r["max_abs_err"], worst)
+        r["times"][tag] = (tk, tp)
+        log(f"[phase 6] {tag} kinds {sorted(kinds)}: f32 max_abs_err={worst:.3e}, ids = plain "
+            f"at {n_sep} separated (query, metric, k); prune ids = dense; lowest bf16 recall@k "
+            f"vs plain f32 {worst_rec[0]:.4f} (plain bf16 vs f32 {worst_rec[1]:.4f}, kernel vs "
+            f"plain bf16 {worst_rec[2]:.4f}); scanned fraction with prune "
+            f"{min(fracs):.3f}-{max(fracs):.3f}"
+            f"; L2 k=10 bf16 kernel {tk:.3f} ms, plain {tp:.3f} ms (CUDA events, median of 5)")
+    require_launched(kind_launches, "a dequant kind was never launched")
+    tag, args, kinds, m, packed = configs[0]
+    phase_packed_edges(torch, dev, q, m, packed, m.compress(x[:3000]))
+    torch.cuda.synchronize()
+    log(f"[phase 6] packed kernel checks and edge cases ok ({time.perf_counter() - t0:.3f} s)")
+    del x, q, norms, configs
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- phase 7
+def timed_search(torch, index, q, k, gt, what):
+    """Warm-up, then the median of 3 host-clock searches; checks the result
+    and returns its ids."""
+    index.search_with_scores(q, k)
+    runs = [wall_s(torch, lambda: index.search_with_scores(q, k)) for _ in range(3)]
+    ids, scores = runs[-1][0]
+    t = float(np.median([r[1] for r in runs]))
+    nq = q.shape[0]
+    require(ids.shape == (nq, k) and scores.shape == (nq, k), f"{what} k={k} result shape")
+    require(bool(np.isfinite(scores).all()) and int(ids.max()) < index.num_rows,
+            f"{what} k={k} result values")
+    require(bool((np.diff(scores, axis=1) >= 0).all()), f"{what} k={k} not ascending")
+    recalls = ", ".join(f"recall@{r} {recall(gt, ids, r):.4f}" for r in sorted({10, k}))
+    log(f"[{what}] search k={k}: {t * 1e3:.3f} ms/batch (median of 3, host clock), "
+        f"QPS {nq / t:.1f}, {recalls}")
+    return ids
+
+
+def phase_saq_main(torch, dev, n=1_048_576, d=1024, nq=256, profile=True):
+    """bench.py:248-380 on the port: FlatQuantizedIndex(SAQ bpd=2, PCA) on
+    the power-law corpus at the Cohere MS MARCO width, then the banded
+    prune corpus."""
+    from vq_tpu_torch import Metric, SAQConfig, SearchConfig
+    from vq_tpu_torch.index.flat import FlatQuantizedIndex
+    from vq_tpu_torch.kernels import packed_scan as pk
+    from vq_tpu_torch.kernels.adc import exact_topk
+    from vq_tpu_torch.methods import saq as sq
+
+    (x, q, sigma), t_gen = wall_s(torch, lambda: packed_corpus(torch, n, d, nq, 0, dev))
+    log(f"[phase 7] corpus N={n} D={d} Q={nq} on {dev}: {t_gen:.3f} s "
+        f"({x.numel() * 4 / 1e9:.2f} GB)")
+    pk.reset_launch_counts()
+    saq = sq.SAQ(SAQConfig(bits_per_dim=2.0, use_pca=True))  # no device: the corpus's
+    _, t_fit = wall_s(torch, lambda: saq.fit(x))
+    require(saq.device == x.device, f"quantizer on {saq.device}, corpus on {x.device}")
+    index = FlatQuantizedIndex(saq, SearchConfig(use_bf16=True))
+    _, t_index = wall_s(torch, lambda: index.fit(x))
+    require(index.codes.device == x.device and index._scan_cache.factors.device == x.device,
+            "index state left the corpus's device")
+    _, t_enc = wall_s(torch, lambda: saq.compress(x))
+    _, t_pack = wall_s(torch, lambda: saq.prepare_scan(index.codes, norms=index.norms))
+    (_, gt_i), t_gt = wall_s(torch, lambda: exact_topk(q, x, 100))
+    gt = gt_i.cpu().numpy()
+    cache = index._scan_cache
+    log(f"[phase 7] SAQ plan bits {saq.plan.seg_bits} lens {saq.plan.seg_lens}, "
+        f"{saq.plan.code_bytes} code bytes/row; fit {t_fit:.3f} s; index fit (encode + norms + "
+        f"norm-ordered pack) {t_index:.3f} s; encode alone {t_enc:.3f} s ({n / t_enc:.0f} "
+        f"rows/s); pack alone {t_pack:.3f} s; ground truth k=100 {t_gt:.3f} s; prune hint "
+        f"{cache.prune_hint}")
+    out = {k: timed_search(torch, index, q, k, gt, "phase 7") for k in (10, 100)}
+    launches = pk.packed_scan_topk.launches
+    log(f"[phase 7] packed_scan_topk launches during the SAQ path: {launches}")
+    require_launched({"packed_scan_topk": launches}, "the SAQ path never launched")
+    require(bool((out[10] == out[100][:, :10]).all()), "k=10 and k=100 searches disagree")
+    _, _, cnt = sq._packed_scan(saq.plan, saq.params, q, cache, 10, Metric.L2, prune=True)
+    units = pk.prune_units(nq, cache.factors.shape[1], dev)
+    log(f"[phase 7] prune stage on this corpus: {int(cnt)}/{units} (query block, tile) pairs "
+        f"scanned = {int(cnt) / units:.4f}")
+    # reference on a query subset: the plain version on the same cache
+    a = sq.packed_scan_args(saq.plan, saq.params, q[:64], cache, 10, Metric.L2)
+    _, ri = pk.packed_scan_topk_plain(**a)
+    rec = recall(cache.perm[ri.long()].cpu(), out[10][:64], 10)
+    log(f"[phase 7] kernel vs plain (64 queries, bf16) recall@10 = {rec:.4f}")
+    require(rec >= BF16_MIN_RECALL, "SAQ path disagrees with its plain reference")
+    if profile:
+        profile_search(torch, index, q, ks=(10,), tag=" SAQ")
+    del x, q, index, cache, gt_i
+    torch.cuda.empty_cache()
+
+    # banded prune corpus (bench.py:316-368): lognormal row scale, norm-
+    # ordered packing, queries from the lowest-norm band
+    x, _, sigma = packed_corpus(torch, n, d, nq, seed=1, dev=dev, lognormal=True)
+    codes = saq.compress(x)
+    cache = sq.prepare_packed(saq.plan, saq.params, codes, sort_rows=True)
+    g = torch.Generator(device=dev).manual_seed(5)
+    band = torch.argsort(torch.linalg.norm(x[:131072], dim=1))[:nq]
+    qb = x[band] + 0.05 * sigma * torch.randn((nq, d), generator=g, device=dev)
+    del x
+    pk.reset_launch_counts()
+    res, times = {}, {}
+    for prune in (True, False, True, False):
+        def run():
+            return sq.scan_topk(saq.plan, saq.params, qb, codes, 10, Metric.L2,
+                                packed_cache=cache, prune_tiles=prune)
+        (res[prune]), t = wall_s(torch, run)
+        times.setdefault(prune, []).append(t)
+    banded = pk.packed_scan_topk.launches
+    require_launched({"packed_scan_topk": banded}, "the banded path never launched")
+    require(torch.equal(res[True][1], res[False][1]), "banded: prune ids differ from dense")
+    _, _, cnt = sq._packed_scan(saq.plan, saq.params, qb, cache, 10, Metric.L2, prune=True)
+    units = pk.prune_units(nq, cache.factors.shape[1], dev)
+    frac = int(cnt) / units
+    log(f"[phase 7] banded corpus k=10 (host clock, second of two runs): prune "
+        f"{times[True][1] * 1e3:.3f} ms, dense {times[False][1] * 1e3:.3f} ms; ids identical; "
+        f"{int(cnt)}/{units} (query block, tile) pairs scanned = {frac:.4f}; prune hint "
+        f"{cache.prune_hint}")
+    require(frac < 1.0, "the prune stage never fired on the banded corpus")
+    del codes, cache, qb
+    torch.cuda.empty_cache()
+    return launches + banded
+
+
+def phase_rabitq_main(torch, dev, n=1_048_576, d=1024, nq=256):
+    """bench.py:385-438 on the port: FlatQuantizedIndex(RaBitQ B=2), k=10."""
+    from vq_tpu_torch import RaBitQConfig, SearchConfig
+    from vq_tpu_torch.index.flat import FlatQuantizedIndex
+    from vq_tpu_torch.kernels import packed_scan as pk
+    from vq_tpu_torch.kernels.adc import exact_topk
+    from vq_tpu_torch.methods.rabitq import RaBitQ
+
+    x, q, _ = packed_corpus(torch, n, d, nq, seed=2, dev=dev)
+    pk.reset_launch_counts()
+    rbq = RaBitQ(RaBitQConfig(num_bits=2))
+    _, t_fit = wall_s(torch, lambda: rbq.fit(x))
+    index = FlatQuantizedIndex(rbq, SearchConfig(use_bf16=True))
+    _, t_index = wall_s(torch, lambda: index.fit(x))
+    (_, gt_i), t_gt = wall_s(torch, lambda: exact_topk(q, x, 10))
+    log(f"[phase 8] RaBitQ B=2 N={n} D={d}: fit {t_fit:.3f} s; index fit (encode + pack) "
+        f"{t_index:.3f} s; ground truth {t_gt:.3f} s")
+    timed_search(torch, index, q, 10, gt_i.cpu().numpy(), "phase 8")
+    launches = pk.packed_scan_topk.launches
+    require_launched({"packed_scan_topk": launches}, "the RaBitQ path never launched")
+    del x, q, index
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -419,20 +743,23 @@ def main() -> int:
     results = {}
     phase_kernel_edges(torch, dev)
     phase_kernels(torch, dev, results)
+    phase_packed_kernels(torch, dev, results)
     launches = phase_main(torch, dev)
     phase_gate(torch, dev)
+    launches["packed_scan_topk"] = phase_saq_main(torch, dev) + phase_rabitq_main(torch, dev)
     jax_side = sorted(m for m in sys.modules if m.split(".")[0] == "jax" or m.startswith(
         ("vq_tpu.kernels", "vq_tpu.methods", "vq_tpu.index", "vq_tpu.data")))
     require(not jax_side, f"JAX modules were imported: {jax_side[:5]}")
 
-    src = "vq_tpu_torch/csrc/pq_scan.cu"
-    replaces = {"pq_scan_topk_fused": "vq_tpu/kernels/pallas_scan.py:330",
-                "pq_score_all": "vq_tpu/kernels/pallas_scan.py:120"}
     kernels = []
-    for name in ("pq_scan_topk_fused", "pq_score_all"):
-        tk, tp = results[name]["times"]["M=16 dsub=96"]
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces[name], "launches": launches[name],
+    for name, src, replaces in (
+            ("pq_scan_topk_fused", "pq_scan.cu", "vq_tpu/kernels/pallas_scan.py:330"),
+            ("pq_score_all", "pq_scan.cu", "vq_tpu/kernels/pallas_scan.py:120"),
+            ("packed_scan_topk", "packed_scan.cu", "vq_tpu/kernels/pallas_packed.py:569")):
+        # times at the main path's configuration (the first one measured)
+        tk, tp = next(iter(results[name]["times"].values()))
+        kernels.append({"name": name, "route": "cuda", "source": f"vq_tpu_torch/csrc/{src}",
+                        "replaces": replaces, "launches": launches[name],
                         "max_abs_err": results[name]["max_abs_err"], "ms": tk,
                         "plain_ms": tp})
     log(json.dumps({"kernels": kernels}))

@@ -52,6 +52,19 @@ def test_phase_main_and_gate_rehearsal(cpu_smoke):
     cs.phase_gate(torch, cpu_smoke, n=400, d=192, nq=8)
 
 
+def test_phase_packed_kernels_rehearsal(cpu_smoke):
+    """Phase 6 at D=128, where SAQ lloyd has no value-plane segment (the
+    script requires every dequant kind to launch only on the card)."""
+    results = {}
+    cs.phase_packed_kernels(torch, cpu_smoke, results, n=3000, d=128, nq=8)
+    assert len(results["packed_scan_topk"]["times"]) == 4
+
+
+def test_phase_packed_paths_rehearsal(cpu_smoke):
+    assert cs.phase_saq_main(torch, cpu_smoke, n=4000, d=128, nq=8, profile=False) == 0
+    assert cs.phase_rabitq_main(torch, cpu_smoke, n=4000, d=128, nq=8) == 0
+
+
 def test_exits_nonzero_without_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert cs.main() != 0

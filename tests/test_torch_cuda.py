@@ -13,11 +13,14 @@ import numpy as np
 import pytest
 import torch
 
-from vq_tpu_torch import KMeansConfig, Metric, PQConfig
+from vq_tpu_torch import KMeansConfig, Metric, PQConfig, RaBitQConfig, SAQConfig
 from vq_tpu_torch.index.flat import FlatQuantizedIndex
+from vq_tpu_torch.kernels import packed_scan as pk
 from vq_tpu_torch.kernels import pq_scan as ps
 from vq_tpu_torch.kernels.adc import scan_codes_topk
 from vq_tpu_torch.methods.pq import PQ
+from vq_tpu_torch.methods.rabitq import RaBitQ
+from vq_tpu_torch.methods.saq import SAQ
 
 pytestmark = pytest.mark.cuda
 
@@ -81,3 +84,47 @@ def test_pq_on_a_card_corpus_stays_on_the_card(dev):
     cpu_index = FlatQuantizedIndex(PQ(cfg)).fit(x.cpu())
     with pytest.raises(ValueError, match="given to code on cpu"):
         cpu_index.search_with_scores(x[:5], 10)
+
+
+@pytest.mark.parametrize("name", ["saq", "rabitq"])
+def test_packed_search_routes_through_the_kernel(dev, name):
+    """k ≤ 128 launches the packed kernel once per search; use_packed=False
+    and k > 128 take the plain streaming scan (as the JAX package sends
+    them to XLA); everything stays on the card."""
+    from vq_tpu_torch.methods import rabitq as rb_mod
+    from vq_tpu_torch.methods import saq as saq_mod
+
+    x = torch.randn((3000, 64), generator=torch.Generator(dev).manual_seed(1), device=dev)
+    q = (SAQ(SAQConfig(bits_per_dim=2.0, block_dims=16)) if name == "saq"
+         else RaBitQ(RaBitQConfig(num_bits=2)))
+    index = FlatQuantizedIndex(q).fit(x)
+    assert index.codes.is_cuda and index._scan_cache.factors.is_cuda
+    pk.reset_launch_counts()
+    for k in (1, 10, 128):
+        ids, _ = index.search_with_scores(x[:7], k)
+        assert ids.shape == (7, k)
+    assert pk.packed_scan_topk.launches == 3
+    if name == "saq":
+        _, ids = saq_mod.scan_topk(q.plan, q.params, x[:7], index.codes, 10, Metric.L2,
+                                   use_packed=False)
+    else:
+        _, ids = rb_mod.scan_topk(q.params, x[:7], index.codes, 10, Metric.L2,
+                                  q.cfg.num_bits, use_packed=False)
+    assert ids.is_cuda and ids.shape == (7, 10)
+    _, ids = q.scan_topk(x[:7], index.codes, 129, Metric.L2, cache=index._scan_cache)
+    assert ids.is_cuda and ids.shape == (7, 129) and pk.packed_scan_topk.launches == 3
+
+
+def test_packed_wrapper_rejects_bad_inputs_on_the_card(dev):
+    seg = pk.make_segspec(2, 32, "uniform", -1)
+    q = torch.zeros((3, 32), device=dev)
+    qa = torch.zeros((3,), device=dev)
+    words = torch.zeros((32, 32), dtype=torch.int32, device=dev)
+    fac = torch.ones((1, 512), device=dev)
+    pk.packed_scan_topk(q, qa, (words,), fac, (), (seg,), 5, metric_kind="ip")
+    with pytest.raises(ValueError):
+        pk.packed_scan_topk(q, qa, (words,), fac, (), (seg,), 129, metric_kind="ip")
+    with pytest.raises(ValueError):
+        pk.packed_scan_topk(q.cpu(), qa, (words,), fac, (), (seg,), 5, metric_kind="ip")
+    with pytest.raises(ValueError):
+        pk.packed_scan_topk(q, qa, (words.float(),), fac, (), (seg,), 5, metric_kind="ip")

@@ -1,5 +1,8 @@
-"""The whole slice: a JAX FlatQuantizedIndex(PQ), fitted on seeded data and
-converted to the port through numpy, must search like the original.
+"""The whole slice: a JAX FlatQuantizedIndex(PQ / SAQ / RaBitQ), fitted on
+seeded data and converted to the port through numpy, must search like the
+original.  (The JAX package on the CPU scans SAQ and RaBitQ with its plain
+streaming route; the port takes its packed route over the layout its
+``fit`` builds, the plain twin of the packed kernel on the CPU.)
 
 Both sides run f32 on the CPU (bf16 is CUDA-only in the port, TPU-only in
 the JAX package).  Ids must be equal at k=10 and k=100 for L2, IP and NIP,
@@ -7,19 +10,31 @@ except inside runs of scores equal to 1e-5 relative, whose order f32 sums
 taken in another order may swap; scores agree to 1e-5 relative.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from vq_tpu.core.config import KMeansConfig, Metric, PQConfig, SearchConfig
+from vq_tpu.core.config import (
+    KMeansConfig,
+    Metric,
+    PQConfig,
+    RaBitQConfig,
+    SAQConfig,
+    SearchConfig,
+)
 from vq_tpu.index.flat import FlatQuantizedIndex as JaxFlat
 from vq_tpu.methods.pq import PQ as JaxPQ
+from vq_tpu.methods.rabitq import RaBitQ as JaxRaBitQ
+from vq_tpu.methods.saq import SAQ as JaxSAQ
 from vq_tpu.metrics.recall import recall_at_k
 from vq_tpu_torch import convert
 from vq_tpu_torch.index.flat import FlatQuantizedIndex
 from vq_tpu_torch.kernels.adc import exact_topk
 from vq_tpu_torch.methods.pq import PQ
+from vq_tpu_torch.methods.rabitq import RaBitQ
+from vq_tpu_torch.methods.saq import SAQ
 
 torch.set_num_threads(1)
 
@@ -38,10 +53,16 @@ def assert_same_ranking(got_ids, want_ids, want_scores, rtol=1e-5):
     """Ids equal, except where a score ties its neighbour to ``rtol``."""
     for r, c in np.argwhere(got_ids != want_ids):
         s = want_scores[r]
-        tol = rtol * abs(s[c])
+        tol = rtol * max(abs(s[c]), 1e-6)
         tied = (c > 0 and abs(s[c] - s[c - 1]) <= tol) or (
             c + 1 < len(s) and abs(s[c + 1] - s[c]) <= tol)
         assert tied, (r, c, s[max(c - 1, 0):c + 2], got_ids[r, c], want_ids[r, c])
+
+
+def assert_close_scores(got, want):
+    """Within 1e-5 of the largest |score|: an L2 distance is a difference of
+    terms that can be far larger than it."""
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
 
 
 def _pair(x, metric):
@@ -100,3 +121,68 @@ def test_port_fit_end_to_end_recall_close_to_jax(data):
 def test_approx_topk_is_refused():
     with pytest.raises(ValueError, match="approx"):
         FlatQuantizedIndex(PQ(CFG), SearchConfig(approx=True))
+
+
+SAQ_CFG = SAQConfig(bits_per_dim=2.0, block_dims=16)
+RABITQ_CFG = RaBitQConfig(num_bits=2)
+
+
+@pytest.fixture(scope="module")
+def packed_quantizers(data):
+    """JAX SAQ and RaBitQ fitted once; each index below encodes with them."""
+    x, _ = data
+    return {"saq": JaxSAQ(SAQ_CFG).fit(x), "rabitq": JaxRaBitQ(RABITQ_CFG).fit(x)}
+
+
+def _packed_pair(x, quantizers, name, metric):
+    jq = quantizers[name]
+    j = JaxFlat(jq, SearchConfig(metric=metric)).fit(x)
+    params = jax.tree_util.tree_map(np.asarray, jq.params)
+    tq = (convert.saq_from_numpy(jq.plan, params, SAQ_CFG) if name == "saq"
+          else convert.rabitq_from_numpy(params, RABITQ_CFG))
+    t = convert.flat_index_of(tq, np.asarray(j.codes), np.asarray(j.norms), j.num_rows,
+                              j.search_cfg)
+    return j, t
+
+
+@pytest.mark.parametrize("name", ["saq", "rabitq"])
+@pytest.mark.parametrize("metric", [Metric.L2, Metric.IP, Metric.NIP])
+def test_converted_packed_index_searches_like_jax(data, packed_quantizers, name, metric):
+    """Ids equal at k=10 and k=100 except inside runs of scores equal to
+    1e-5 relative; scores within 1e-5 of the largest |score| (an L2 distance
+    is a difference of terms that can be far larger than it)."""
+    x, q = data
+    j, t = _packed_pair(x, packed_quantizers, name, metric)
+    assert t._scan_cache is not None
+    for k in (10, 100):
+        wi, ws = j.search_with_scores(q, k)
+        gi, gs = t.search_with_scores(q, k)
+        assert gi.dtype == np.uint32 and gi.shape == (24, k)
+        assert_same_ranking(gi, wi, ws)
+        assert_close_scores(gs, ws)
+
+
+@pytest.mark.parametrize("name", ["saq", "rabitq"])
+def test_packed_memory_footprint_matches_jax(data, packed_quantizers, name):
+    j, t = _packed_pair(data[0], packed_quantizers, name, Metric.L2)
+    assert t.memory_footprint() == j.memory_footprint()
+
+
+@pytest.mark.parametrize("name", ["saq", "rabitq"])
+def test_packed_save_load_roundtrip(data, packed_quantizers, tmp_path, name):
+    """Nested params (SAQ's per-segment rotation tuple) survive save/load,
+    and the loaded index rebuilds its scan layout."""
+    x, q = data
+    _, t = _packed_pair(x, packed_quantizers, name, Metric.NIP)
+    path = str(tmp_path / "flat.pkl")
+    t.save(path)
+    fresh = SAQ(SAQ_CFG) if name == "saq" else RaBitQ(RABITQ_CFG)
+    back = FlatQuantizedIndex(fresh).load(path)
+    assert back._scan_cache is not None
+    for k in (10, 100):
+        np.testing.assert_array_equal(back.search(q, k), t.search(q, k))
+    qpath = str(tmp_path / "quantizer.pkl")
+    t.quantizer.save(qpath)
+    loaded = (SAQ(SAQ_CFG) if name == "saq" else RaBitQ(RABITQ_CFG)).load(qpath)
+    np.testing.assert_array_equal(loaded.compress(x[:50]).numpy(),
+                                  t.quantizer.compress(x[:50]).numpy())

@@ -6,7 +6,8 @@
   another device than the CPU is never copied to it (``meta`` stands in
   for a card here).
 * The kernel build raises when ``nvcc`` is missing.
-* A CPU tensor runs the plain versions and leaves the launch counters at 0.
+* A CPU tensor runs the plain versions and leaves the launch counters at 0
+  (the PQ kernels and the packed-code kernel of SAQ / RaBitQ).
 """
 
 import subprocess
@@ -17,12 +18,16 @@ import numpy as np
 import pytest
 import torch
 
-from vq_tpu.core.config import KMeansConfig, Metric, PQConfig
+from vq_tpu.core.config import KMeansConfig, Metric, PQConfig, RaBitQConfig, SAQConfig
 from vq_tpu_torch import _device
 from vq_tpu_torch.kernels import _build
+from vq_tpu_torch.index.flat import FlatQuantizedIndex
+from vq_tpu_torch.kernels import packed_scan as pk
 from vq_tpu_torch.kernels import pq_scan as ps
 from vq_tpu_torch.kernels.adc import scan_codes_topk
 from vq_tpu_torch.methods.pq import PQ
+from vq_tpu_torch.methods.rabitq import RaBitQ
+from vq_tpu_torch.methods.saq import SAQ
 
 torch.set_num_threads(1)
 
@@ -31,13 +36,18 @@ REPO = Path(__file__).resolve().parents[1]
 _NO_JAX = """
 import sys
 import numpy as np
-from vq_tpu.core.config import KMeansConfig, PQConfig
+from vq_tpu_torch import KMeansConfig, PQConfig, RaBitQConfig, SAQConfig, convert
+from vq_tpu_torch.core import packing
 from vq_tpu_torch.index.flat import FlatQuantizedIndex
+from vq_tpu_torch.kernels import caq, lloyd1d, packed_scan
 from vq_tpu_torch.methods.pq import PQ
+from vq_tpu_torch.methods.rabitq import RaBitQ
+from vq_tpu_torch.methods.saq import SAQ
 x = np.random.default_rng(0).standard_normal((600, 16)).astype(np.float32)
-idx = FlatQuantizedIndex(PQ(PQConfig(4, 4, KMeansConfig(iters=2)))).fit(x)
-ids = idx.search(x[:5], 3)
-assert ids.shape == (5, 3), ids.shape
+for q in (PQ(PQConfig(4, 4, KMeansConfig(iters=2))), SAQ(SAQConfig(2.0, block_dims=8)),
+          SAQ(SAQConfig(3.0, block_dims=8, codebook="exact")), RaBitQ(RaBitQConfig(2))):
+    ids = FlatQuantizedIndex(q).fit(x).search(x[:5], 3)
+    assert ids.shape == (5, 3), ids.shape
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert not loaded, loaded
 print("ok")
@@ -115,3 +125,28 @@ def test_wrappers_refuse_other_devices():
     t = torch.zeros((4, 4), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         ps.pq_score_all(t, t.to(torch.uint8), t.reshape(4, 1, 4))
+
+
+def test_cpu_tensors_leave_the_packed_counter_at_zero():
+    x = np.random.default_rng(1).standard_normal((700, 16)).astype(np.float32)
+    pk.reset_launch_counts()
+    for q in (SAQ(SAQConfig(2.0, block_dims=8)), RaBitQ(RaBitQConfig(2))):
+        index = FlatQuantizedIndex(q).fit(x)
+        for k in (10, 100):
+            index.search(x[:4], k)
+        cache = q.prepare_scan(index.codes, norms=index.norms)
+        q.packed_scan_raw(torch.from_numpy(x[:4]), cache, 5, Metric.L2)
+    assert pk.packed_scan_topk.launches == 0
+
+
+def test_packed_wrapper_refuses_other_devices():
+    t = torch.zeros((512, 4), device="meta")
+    seg = pk.make_segspec(2, 4, "uniform", -1)
+    with pytest.raises(ValueError, match="unsupported device"):
+        pk.packed_scan_topk(t[:2], t[:2, 0], (t[:32].to(torch.int32),), t.T, (), (seg,), 5,
+                            metric_kind="ip")
+
+
+def test_base_quantizer_has_no_packed_scan():
+    with pytest.raises(NotImplementedError, match="packed"):
+        PQ(PQConfig(4, 4)).packed_scan_raw(None, None, 5, Metric.L2)

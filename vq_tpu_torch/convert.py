@@ -1,12 +1,15 @@
 """JAX-package state (as numpy arrays) → the port's state.
 
-With these, both packages search the same codes with the same codebooks:
+With these, both packages search the same codes with the same parameters:
 the caller takes ``np.asarray`` of the JAX objects (this module never
 imports jax) and hands the arrays over.
 
     params = pq_params_from_numpy(np.asarray(jax_pq.params.codebooks), "cuda")
     index = flat_index_from_numpy(codebooks, codes, norms, num_rows,
                                   jax_index.search_cfg, jax_pq.cfg)
+    saq = saq_from_numpy(jax_saq.plan, jax.tree_util.tree_map(np.asarray,
+                         jax_saq.params), jax_saq.cfg)
+    packed = packed_corpus_from_numpy(words, factors, ...)   # (N, F) factors
 """
 
 from __future__ import annotations
@@ -14,10 +17,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from vq_tpu.core.config import PQConfig, SearchConfig
+from vq_tpu.core.config import PQConfig, RaBitQConfig, SAQConfig, SearchConfig
 from vq_tpu_torch._device import resolve_device
 from vq_tpu_torch.index.flat import FlatQuantizedIndex
+from vq_tpu_torch.kernels.packed_scan import PackedCorpus
 from vq_tpu_torch.methods.pq import PQ, PQParams
+from vq_tpu_torch.methods.rabitq import RaBitQ, RaBitQParams
+from vq_tpu_torch.methods.saq import SAQ, SAQParams, SAQPlan
+
+
+def _tensor(a, device, dtype=np.float32) -> torch.Tensor:
+    return torch.tensor(np.ascontiguousarray(a, dtype=dtype), device=device)
 
 
 def pq_params_from_numpy(codebooks: np.ndarray, device=None) -> PQParams:
@@ -51,8 +61,60 @@ def flat_index_from_numpy(codebooks: np.ndarray, codes: np.ndarray, norms: np.nd
                           device=None) -> FlatQuantizedIndex:
     """The state of a JAX ``FlatQuantizedIndex(PQ)`` (``codes``, ``norms``,
     ``num_rows``, search config; ``vq_tpu/index/flat.py``) → a port index."""
-    index = FlatQuantizedIndex(pq_from_numpy(codebooks, pq_cfg, device=device), search_cfg)
-    index.codes = codes_from_numpy(codes, index.device)
-    index.norms = torch.tensor(np.asarray(norms, dtype=np.float32), device=index.device)
+    pq = pq_from_numpy(codebooks, pq_cfg, device=device)
+    return flat_index_of(pq, codes_from_numpy(codes, pq.device), norms, num_rows, search_cfg)
+
+
+def flat_index_of(quantizer, codes, norms: np.ndarray, num_rows: int,
+                  search_cfg: SearchConfig) -> FlatQuantizedIndex:
+    """A port index over a fitted port quantizer and a JAX index's byte
+    rows and norms; the quantizer's scan layout is built as ``fit`` does."""
+    index = FlatQuantizedIndex(quantizer, search_cfg)
+    index.codes = (codes if isinstance(codes, torch.Tensor) else
+                   torch.tensor(np.ascontiguousarray(codes), device=quantizer.device))
+    index.norms = _tensor(norms, quantizer.device)
     index.num_rows = int(num_rows)
+    index._scan_cache = quantizer.prepare_scan(index.codes, norms=index.norms,
+                                               num_queries=search_cfg.prepare_queries)
     return index
+
+
+def saq_from_numpy(plan, params, cfg: SAQConfig, device=None) -> SAQ:
+    """A fitted ``SAQ`` from a JAX ``SAQPlan`` (or anything with its fields)
+    and ``SAQParams`` of numpy arrays."""
+    dev = resolve_device(device)
+    saq = SAQ(cfg, device=dev)
+    saq.plan = SAQPlan(dim=int(plan.dim), seg_starts=tuple(map(int, plan.seg_starts)),
+                       seg_lens=tuple(map(int, plan.seg_lens)),
+                       seg_bits=tuple(map(int, plan.seg_bits)))
+    saq.params = SAQParams(
+        pca_mean=_tensor(params.pca_mean, dev), pca_rot=_tensor(params.pca_rot, dev),
+        seg_rots=tuple(_tensor(r, dev) for r in params.seg_rots),
+        seg_levels=tuple(_tensor(lv, dev) for lv in params.seg_levels))
+    saq._dim = saq.plan.dim
+    return saq
+
+
+def rabitq_from_numpy(params, cfg: RaBitQConfig, device=None) -> RaBitQ:
+    """A fitted ``RaBitQ`` from JAX ``RaBitQParams`` of numpy arrays."""
+    dev = resolve_device(device)
+    rb = RaBitQ(cfg, device=dev)
+    rb.params = RaBitQParams(centroid=_tensor(params.centroid, dev),
+                             rotation=_tensor(params.rotation, dev),
+                             levels=_tensor(params.levels, dev))
+    rb._dim = rb.params.centroid.shape[0]
+    return rb
+
+
+def packed_corpus_from_numpy(words, factors: np.ndarray, num_rows: int, tile_stats=None,
+                             perm=None, has_norms: bool = False, prune_hint: bool = False,
+                             device=None) -> PackedCorpus:
+    """A JAX ``PackedCorpus`` → the port's: words as they are (int32 words,
+    f32 value planes), factors transposed from (N, F) to (F, N)."""
+    dev = resolve_device(device)
+    ws = tuple(torch.tensor(np.ascontiguousarray(w), device=dev) for w in words)
+    return PackedCorpus(
+        words=ws, factors=_tensor(np.asarray(factors).T, dev), num_rows=int(num_rows),
+        tile_stats=None if tile_stats is None else _tensor(tile_stats, dev),
+        has_norms=has_norms, perm=None if perm is None else _tensor(perm, dev, np.int32),
+        prune_hint=prune_hint)

@@ -58,47 +58,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "topk.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;       // threads per block in every kernel
-constexpr int kMaxK = 128;          // largest k (the TPU kernel's _KPAD)
 constexpr int kSortCap = 512;       // per-query buffer: k + kThreads <= 512
 constexpr int kLutQ = 32;           // queries per LUT-build block
 constexpr int kLutD = 32;           // dsub chunk staged in shared memory
-constexpr int kMergeCap = 4096;     // chunks * k the merge kernel sorts
-
-__device__ __forceinline__ float rnd(float v, int bf16) {
-  return bf16 ? __bfloat162float(__float2bfloat16(v)) : v;
-}
-
-// (sa, ia) ranks before (sb, ib): score descending, then id ascending
-__device__ __forceinline__ bool ranks_before(float sa, int ia, float sb, int ib) {
-  return sa > sb || (sa == sb && ia < ib);
-}
-
-// Bitonic sort of p (a power of two) entries into ranks_before order, by
-// `nt` cooperating threads starting at thread `t0`.  BLOCK selects the
-// barrier: __syncthreads for a whole block, __syncwarp for one warp.
-template <bool BLOCK>
-__device__ void bitonic_sort(float* s, int* id, int p, int t0, int nt) {
-  for (int size = 2; size <= p; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = t0; t < (p >> 1); t += nt) {
-        int lo = 2 * stride * (t / stride) + (t % stride);
-        int hi = lo + stride;
-        float a = s[lo], b = s[hi];
-        int ia = id[lo], ib = id[hi];
-        bool forward = (lo & size) == 0;
-        bool swap = forward ? ranks_before(b, ib, a, ia) : ranks_before(a, ia, b, ib);
-        if (swap) {
-          s[lo] = b; s[hi] = a;
-          id[lo] = ib; id[hi] = ia;
-        }
-      }
-      if (BLOCK) __syncthreads(); else __syncwarp();
-    }
-  }
-}
 
 // ---------------------------------------------------------------- LUT build
 // grid (ceil(Q / kLutQ), M); thread c owns codeword c of subquantizer m.
@@ -260,18 +227,10 @@ __global__ void scan_topk_kernel(const float* __restrict__ lut,
     if (warp < nq) {
       const int nc = n_cand[warp];
       if (nc > 0) {
-        float* s = buf_s + warp * kSortCap;
-        int* id = buf_i + warp * kSortCap;
-        int p = 32;
-        while (p < k + nc) p <<= 1;
-        bitonic_sort<false>(s, id, p, lane, 32);
-        for (int i = k + lane; i < p; i += 32) {
-          s[i] = -INFINITY;
-          id[i] = INT_MAX;
-        }
-        __syncwarp();
+        const float kth = warp_merge_candidates(buf_s + warp * kSortCap,
+                                                buf_i + warp * kSortCap, k, nc, lane);
         if (lane == 0) {
-          thr[warp] = s[k - 1];
+          thr[warp] = kth;
           n_cand[warp] = 0;
         }
       }
@@ -283,30 +242,6 @@ __global__ void scan_topk_kernel(const float* __restrict__ lut,
     const size_t o = ((size_t)(q0 + j) * chunks + chunk) * k + r;
     cand_s[o] = buf_s[j * kSortCap + r];
     cand_i[o] = buf_i[j * kSortCap + r];
-  }
-}
-
-// ------------------------------------------------------------ top-k merge
-// grid (Q); merges the query's n_cand = chunks * k candidates.
-__global__ void merge_kernel(const float* __restrict__ cand_s, const int* __restrict__ cand_i,
-                             float* __restrict__ out_s, int* __restrict__ out_i,
-                             int n_cand, int k) {
-  __shared__ float s[kMergeCap];
-  __shared__ int id[kMergeCap];
-  const int q = blockIdx.x;
-  int p = 32;
-  while (p < n_cand) p <<= 1;
-  for (int i = threadIdx.x; i < p; i += blockDim.x) {
-    const bool in = i < n_cand;
-    s[i] = in ? cand_s[(size_t)q * n_cand + i] : -INFINITY;
-    id[i] = in ? cand_i[(size_t)q * n_cand + i] : INT_MAX;
-  }
-  __syncthreads();
-  bitonic_sort<true>(s, id, p, threadIdx.x, blockDim.x);
-  for (int r = threadIdx.x; r < k; r += blockDim.x) {
-    const float v = s[r];
-    out_s[(size_t)q * k + r] = v;
-    out_i[(size_t)q * k + r] = v > -INFINITY ? id[r] : 0;
   }
 }
 

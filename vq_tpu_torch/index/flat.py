@@ -1,7 +1,9 @@
 """Flat (exhaustive) quantized index — counterpart of ``vq_tpu/index/flat.py``.
 
-The corpus stays compressed on the quantizer's device and search is the
-fused decode→score→top-k ADC scan (``kernels/adc.py``).  The original row
+The corpus stays compressed on the quantizer's device; search is the
+quantizer's ``scan_topk`` (the PQ ADC scan of ``kernels/adc.py``, or the
+packed-code scan of SAQ and RaBitQ over the layout ``prepare_scan`` built
+once at fit).  The original row
 norms are kept as a 4 B/vector side-channel for the normalized-IP metric.
 """
 
@@ -16,7 +18,7 @@ import torch
 from vq_tpu.core.config import SearchConfig
 from vq_tpu_torch._device import as_f32
 from vq_tpu_torch.index.base import BaseSearchIndex, nbytes_of
-from vq_tpu_torch.methods.base import BaseQuantizer
+from vq_tpu_torch.methods.base import BaseQuantizer, tree_leaves
 
 
 class FlatQuantizedIndex(BaseSearchIndex):
@@ -59,7 +61,7 @@ class FlatQuantizedIndex(BaseSearchIndex):
         return idx.cpu().numpy().astype(np.uint32), scores.cpu().numpy()
 
     def memory_footprint(self) -> int:
-        params_b = sum(nbytes_of(p) for p in self.quantizer.params)
+        params_b = sum(nbytes_of(p) for p in tree_leaves(self.quantizer.params))
         return nbytes_of(self.codes) + params_b + nbytes_of(self.norms)
 
     def reconstruction_mse(self, X, sample: Optional[int] = 10000) -> float:

@@ -1,11 +1,13 @@
-"""Build and load the port's CUDA kernels (``vq_tpu_torch/csrc/*.cu``).
+"""Build and load the port's CUDA kernels (``vq_tpu_torch/csrc/*.cu``, with
+the shared device code of ``csrc/*.cuh``).
 
 The sources are compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface and loaded with ctypes.  The build happens at first
 use, from the sources in the package only, into ``vq_tpu_torch/_build/``
-(git-ignored); the library's name carries a hash of the sources, so an
-edited source is rebuilt and an unchanged one is loaded as it is.  A missing
-``nvcc`` or a failed compile raises: there is no fallback.
+(git-ignored); the library's name carries a hash of the sources and
+headers, so an edited source or header is rebuilt and an unchanged one is
+loaded as it is.  A missing ``nvcc`` or a failed compile raises: there is
+no fallback.
 """
 
 from __future__ import annotations
@@ -30,6 +32,10 @@ def _sources():
     return sorted(CSRC.glob("*.cu"))
 
 
+def _headers():
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def find_nvcc() -> str:
     """``nvcc`` from PATH, else ``$CUDA_HOME/bin``, else /usr/local/cuda/bin."""
     found = shutil.which("nvcc")
@@ -48,30 +54,43 @@ def find_nvcc() -> str:
 def build_library() -> Path:
     """Compile the sources if their hash has no library yet; return its path.
 
-    The compiler's report (``-Xptxas -v``: registers, shared memory and
-    spills per kernel) is kept beside the library as ``<name>.log``.
+    One ``nvcc`` per source, all started together, then one link.  The
+    compilers' reports (``-Xptxas -v``: registers, shared memory and spills
+    per kernel) are kept beside the library as ``<name>.log``.
     """
     srcs = _sources()
     digest = hashlib.sha256()
-    for s in srcs:
+    for s in srcs + _headers():
+        digest.update(s.name.encode())
         digest.update(s.read_bytes())
     lib = BUILD_DIR / f"libvq_tpu_torch_{digest.hexdigest()[:16]}.so"
     if lib.is_file():
         return lib
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a temporary name and rename: a concurrent build never
-    # loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-o", tmp, *map(str, srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    lib.with_suffix(".log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, lib)
+    # compile into a temporary directory and rename the library: a
+    # concurrent build never loads a half-written one
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [Path(tmpdir) / f"{s.stem}.o" for s in srcs]
+        cmds = [[nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-c", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v", "-o", str(o), str(s)] for s, o in zip(srcs, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for c in cmds]
+        outs = [p.communicate() for p in procs]
+        tmp = Path(tmpdir) / lib.name
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        failed = [(c, o) for c, p, o in zip(cmds, procs, outs) if p.returncode != 0]
+        log = "".join(" ".join(c) + "\n" + out + err for c, (out, err) in zip(cmds, outs))
+        if not failed:
+            proc = subprocess.run(link, capture_output=True, text=True)
+            log += " ".join(link) + "\n" + proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                failed = [(link, (proc.stdout, proc.stderr))]
+        lib.with_suffix(".log").write_text(log)
+        if failed:
+            cmd, (_, err) = failed[0]
+            raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{err[-4000:]}")
+        os.replace(tmp, lib)
     return lib
 
 
@@ -83,6 +102,11 @@ _SIGNATURES = {
     "vq_pq_lut": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "vq_pq_score_all": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "vq_pq_scan_topk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "vq_packed_queries_per_block": [],
+    "vq_packed_max_segments": [],
+    "vq_ordered_neg_inf": [],
+    "vq_packed_scan_topk": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

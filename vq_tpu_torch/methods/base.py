@@ -2,8 +2,9 @@
 
 A concrete method is a small stateful class over plain functions on
 tensors (``fit → params``, ``encode(params, X) → codes``,
-``decode(params, codes) → x̂``); ``params`` is a NamedTuple of tensors on
-the quantizer's ``device``.  ``compress``/``decompress`` return tensors on
+``decode(params, codes) → x̂``); ``params`` is a NamedTuple of tensors, or
+of tuples of tensors (SAQ's per-segment rotations), on the quantizer's
+``device``.  ``compress``/``decompress`` return tensors on
 that device.  A quantizer built without a device takes the device of the
 tensor it is fitted on (the CPU for numpy input); a tensor on a card is
 never copied to another device (``_device.to_device`` raises).
@@ -15,9 +16,29 @@ import os
 import pickle
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from vq_tpu_torch._device import as_f32, resolve_device
+
+
+def tree_map(fn, tree):
+    """Apply ``fn`` to every array leaf (tensor or numpy) of a params tree of
+    NamedTuples and tuples, keeping its structure."""
+    if isinstance(tree, (torch.Tensor, np.ndarray)):
+        return fn(tree)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, t) for t in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, t) for t in tree)
+    return tree
+
+
+def tree_leaves(tree) -> list:
+    """The array leaves of a params tree, in order (``jax.tree_util.tree_leaves``)."""
+    leaves = []
+    tree_map(leaves.append, tree)
+    return leaves
 
 
 class BaseQuantizer:
@@ -71,6 +92,12 @@ class BaseQuantizer:
         None means "scan the stored rows directly"."""
         return None
 
+    def packed_scan_raw(self, queries, packed, k, metric, num_valid=None, use_bf16=True,
+                        tile_mask=None, mask_cap=None):
+        """Maximize-form (scores, scan-position ids) of the packed kernel over
+        a ``prepare_scan`` layout; only methods with a packed layout have one."""
+        raise NotImplementedError(f"{self.name} has no packed scan layout")
+
     @property
     def dim(self) -> Optional[int]:
         return self._dim
@@ -89,21 +116,25 @@ class BaseQuantizer:
         return {}
 
     # -- persistence -------------------------------------------------------
+    def _payload(self) -> Dict[str, Any]:
+        return {"name": self.name, "dim": self._dim,
+                "params": tree_map(lambda t: t.cpu().numpy(), self.params),
+                "config": self.config_dict()}
+
+    def _restore_payload(self, payload: Dict[str, Any]) -> None:
+        self._dim = payload["dim"]
+        if self.device is None:
+            self.device = torch.device("cpu")
+        self.params = tree_map(lambda a: torch.as_tensor(a, device=self.device),
+                               payload["params"])
+
     def save(self, path: str) -> None:
         """Persist params as a pickle of host numpy arrays."""
-        host = type(self.params)(*(t.cpu().numpy() for t in self.params))
-        payload = {"name": self.name, "dim": self._dim, "params": host,
-                   "config": self.config_dict()}
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
         with open(path, "wb") as f:
-            pickle.dump(payload, f)
+            pickle.dump(self._payload(), f)
 
     def load(self, path: str) -> "BaseQuantizer":
         with open(path, "rb") as f:
-            payload = pickle.load(f)
-        self._dim = payload["dim"]
-        host = payload["params"]
-        if self.device is None:
-            self.device = torch.device("cpu")
-        self.params = type(host)(*(torch.as_tensor(a, device=self.device) for a in host))
+            self._restore_payload(pickle.load(f))
         return self
