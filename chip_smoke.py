@@ -38,14 +38,34 @@ Phases (any failure exits non-zero; nothing is caught):
    = dense ids and a scanned fraction below 1.
 8. The RaBitQ path: FlatQuantizedIndex(RaBitQ B=2) on the same corpus
    shape, k=10.
+9. The packed kernel's tile-gather mode against its plain version
+   (N=100,000, D=1024, Q=256, the four phase-6 configurations on
+   order-preserving caches): masks of every tile, 25% random, 5% in
+   contiguous runs, one tile, only the last (partial) tile, no tile; L2 /
+   IP / NIP at k=10 and 100, f32 ids and scores, bf16 recall, prune ids =
+   unpruned ids, every tile = the dense kernel bit for bit, no tile = -inf
+   with id 0, the same result at three ``mask_cap`` values.  Its time table
+   (dense vs gather at 100/25/5/1% of tiles, N=1,048,576, k=100) runs on
+   phase 7's SAQ codes.
+10. The probed-tile IVF path (``bench.py:478-651`` on the port, SAQ bpd=2):
+   the planted full-rank corpus (N=1,048,576, D=1536), a coarse pass of
+   K=4096 cells, ``IvfPackedFlatIndex.fit(coarse=...)``, searches at
+   nprobe 50 / 200 / 4096 (Q=256) and 50 / 4096 (Q=8), k=100, with QPS,
+   tiles masked in, recall@1/10/100 and recall@100 against nprobe=4096;
+   RaBitQ B=2 at nprobe=50.  nprobe=4096 must equal the unmasked kernel bit
+   for bit; the gather kernel against its plain version at the path's
+   masks; the gather launch counter must move; a torch.profiler breakdown.
 
 The line before the last is a JSON object of the kernels (launches in
-phases 4 and 7-8, errors and times from phases 3 and 6); the last line is
-``{"ok": true, "device": {...}}``.
+phases 4, 7-8 and 10; errors and times from phases 3, 6 and 9; each
+kernel's bound, the least time the card could take for the timed call);
+the card's name and power limit are printed before it, and the last line
+is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -57,6 +77,11 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 RECALL_GATE_PQ192_FLOOR = 0.763  # bench.py:48
+# H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W): memory rate
+# and the operation rate of each operand type (bf16 on the tensor cores,
+# f32 outside them)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
 # f32 mode: kernel and plain scores differ only in the order of f32 sums
 # (per-subspace table entries vs one length-D dot product).  The rounding
 # error of a sum is relative to the magnitude of its terms, not of the
@@ -103,6 +128,53 @@ def require(cond: bool, what: str) -> None:
 def require_launched(counts: dict, what: str) -> None:
     """Every kernel of `counts` ({wrapper name: launches}) was launched."""
     require(all(v > 0 for v in counts.values()), f"{what}: {counts}")
+
+
+# ---------------------------------------------------------------- bounds
+def bound_ms(nbytes: float, op_s: float):
+    """(least ms, what sets it): the larger of the bytes over the memory
+    rate and ``op_s``, the seconds the operations take at peak rates."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_bytes, op_s) * 1e3, ("bytes" if t_bytes >= op_s else "operations")
+
+
+def pq_bound(q, codes, cb, k, bf16, score_all):
+    """A PQ kernel's bound: codes, codebooks and queries read once, the
+    (Q, k) top-k or the (Q, N) scores written once; the per-query tables
+    (2·K·D products a query, in the operands' type) plus one f32 add per
+    (query, row, subspace)."""
+    nq, d = q.shape
+    n, m = codes.shape
+    nbytes = (codes.numel() * codes.element_size() + cb.numel() * 4 + q.numel() * 4
+              + (nq * n * 4 if score_all else nq * k * 8))
+    op_s = (2.0 * nq * cb.shape[1] * d / PEAK_OPS_PER_S["bf16" if bf16 else "f32"]
+            + float(nq) * n * m / PEAK_OPS_PER_S["f32"])
+    return bound_ms(nbytes, op_s)
+
+
+def scanned_rows(torch, n_pad, limit, tile_mask=None):
+    """Rows below `limit` in the tiles a scan reads (all, or the masked-in)."""
+    valid = torch.clamp(limit - torch.arange(0, n_pad, 512), 0, 512)
+    if tile_mask is not None:
+        valid = valid * (tile_mask.cpu() != 0)
+    return int(valid.sum())
+
+
+def packed_bound(torch, a):
+    """The packed kernel's bound for ``packed_scan_topk`` arguments ``a``:
+    the scanned rows' words and factors, the level tables, the queries (and
+    the mask) read once, the (Q, k) top-k written once; 2·Q·D operations a
+    scanned row, in the operands' type (bf16 in bf16 mode)."""
+    fac = a["factors"]
+    n_pad = fac.shape[1]
+    mask = a.get("tile_mask")
+    rows = scanned_rows(torch, n_pad, a["limit"], mask)
+    per_row = (sum(w.numel() * w.element_size() for w in a["words"]) + fac.numel() * 4) / n_pad
+    nq, d = a["q_cat"].shape
+    nbytes = (rows * per_row + sum(t.numel() * 4 for t in a["lv_tables"]) + nq * (d + 1) * 4
+              + nq * a["k"] * 8 + (0 if mask is None else mask.numel() * mask.element_size()))
+    ops = 2.0 * nq * rows * d
+    return bound_ms(nbytes, ops / PEAK_OPS_PER_S["bf16" if a["use_bf16"] else "f32"])
 
 
 # ------------------------------------------------------------------ data
@@ -279,11 +351,14 @@ def phase_kernels(torch, dev, results, n=100_000, d=1536, nq=1024):
         t_sp = cuda_ms(torch, lambda: ps.pq_score_all_plain(q, codes, cb, True, True))
         log(f"[phase 3] {tag} times (ms, median of 5, bf16): fused kernel {t_fk:.3f} plain "
             f"{t_fp:.3f}; score_all kernel {t_sk:.3f} plain {t_sp:.3f}")
-        for name, err, tk, tp in (("pq_scan_topk_fused", err_fused, t_fk, t_fp),
-                                  ("pq_score_all", err_score, t_sk, t_sp)):
-            r = results.setdefault(name, {"max_abs_err": 0.0, "times": {}})
+        for name, err, tk, tp, score_all in (("pq_scan_topk_fused", err_fused, t_fk, t_fp, False),
+                                             ("pq_score_all", err_score, t_sk, t_sp, True)):
+            r = results.setdefault(name, {"max_abs_err": 0.0, "times": {}, "bounds": {}})
             r["max_abs_err"] = max(r["max_abs_err"], err)
             r["times"][tag] = (tk, tp)
+            r["bounds"][tag] = pq_bound(q, codes, cb, k, True, score_all)
+            log(f"[phase 3] {tag} {name} bound {r['bounds'][tag][0]:.4f} ms "
+                f"({r['bounds'][tag][1]})")
         del codes, cb
     del x, q
     torch.cuda.empty_cache()
@@ -313,7 +388,7 @@ def profile_search(torch, index, q, ks=(10, 100), tag="", reps: int = 5) -> None
         log(f"[profile]{tag} search k={k}: wall {wall_ms:.3f} ms/search, device busy "
             f"{busy:.3f} ms, idle share {1 - busy / wall_ms:.3f} (torch.profiler, {reps} "
             f"searches)")
-        for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]:
+        for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]:
             log(f"[profile]{tag}   {ms:9.3f} ms/search  {name[:100]}")
 
 
@@ -448,10 +523,11 @@ def packed_tol(torch, a):
     return tol
 
 
-def packed_configs(torch, x, q, norms):
+def packed_configs(torch, x, q, norms, tile_cache=False):
     """(tag, args(metric, k, use_bf16, prune, limit) → packed_scan_topk
     arguments for the queries q, dequant kinds, quantizer, packed corpus)
-    for the four configurations of phase 6."""
+    for the four configurations of phases 6 and 9; SAQ's cache is
+    norm-ordered, or order-preserving with ``tile_cache`` (the IVF one)."""
     from vq_tpu_torch import RaBitQConfig, SAQConfig
     from vq_tpu_torch.methods import rabitq as rb
     from vq_tpu_torch.methods import saq as sq
@@ -461,7 +537,7 @@ def packed_configs(torch, x, q, norms):
                      ("SAQ lloyd bpd=2", SAQConfig(bits_per_dim=2.0, codebook="lloyd"))):
         m = sq.SAQ(cfg).fit(x)
         packed = sq.prepare_packed(m.plan, m.params, m.compress(x), norms=norms,
-                                   sort_rows=True)
+                                   sort_rows=not tile_cache)
 
         def args(metric, k, bf16, prune, limit=None, m=m, packed=packed):
             return sq.packed_scan_args(m.plan, m.params, q, packed, k, metric,
@@ -528,7 +604,7 @@ def phase_packed_kernels(torch, dev, results, n=100_000, d=1024, nq=256):
     log(f"[phase 6] corpus N={n} (lognormal rows) D={d} Q={nq}; 4 configurations fitted, "
         f"encoded and packed in {time.perf_counter() - t0:.3f} s")
     kind_launches = {"uniform": 0, "perdim": 0, "shared": 0, "values": 0}
-    r = results.setdefault("packed_scan_topk", {"max_abs_err": 0.0, "times": {}})
+    r = results.setdefault("packed_scan_topk", {"max_abs_err": 0.0, "times": {}, "bounds": {}})
     for tag, args, kinds, m, packed in configs:
         before = pk.packed_scan_topk.launches
         worst, n_sep, fracs, worst_rec = 0.0, 0, [], (1.0, 1.0, 1.0)
@@ -567,12 +643,14 @@ def phase_packed_kernels(torch, dev, results, n=100_000, d=1024, nq=256):
         tp = cuda_ms(torch, lambda: pk.packed_scan_topk_plain(**a))
         r["max_abs_err"] = max(r["max_abs_err"], worst)
         r["times"][tag] = (tk, tp)
+        r["bounds"][tag] = packed_bound(torch, a)
         log(f"[phase 6] {tag} kinds {sorted(kinds)}: f32 max_abs_err={worst:.3e}, ids = plain "
             f"at {n_sep} separated (query, metric, k); prune ids = dense; lowest bf16 recall@k "
             f"vs plain f32 {worst_rec[0]:.4f} (plain bf16 vs f32 {worst_rec[1]:.4f}, kernel vs "
             f"plain bf16 {worst_rec[2]:.4f}); scanned fraction with prune "
             f"{min(fracs):.3f}-{max(fracs):.3f}"
-            f"; L2 k=10 bf16 kernel {tk:.3f} ms, plain {tp:.3f} ms (CUDA events, median of 5)")
+            f"; L2 k=10 bf16 kernel {tk:.3f} ms, plain {tp:.3f} ms (CUDA events, median of 5), "
+            f"bound {r['bounds'][tag][0]:.4f} ms ({r['bounds'][tag][1]})")
     require_launched(kind_launches, "a dequant kind was never launched")
     tag, args, kinds, m, packed = configs[0]
     phase_packed_edges(torch, dev, q, m, packed, m.compress(x[:3000]))
@@ -649,6 +727,7 @@ def phase_saq_main(torch, dev, n=1_048_576, d=1024, nq=256, profile=True):
     require(rec >= BF16_MIN_RECALL, "SAQ path disagrees with its plain reference")
     if profile:
         profile_search(torch, index, q, ks=(10,), tag=" SAQ")
+    gather_table(torch, dev, saq, index.codes, index.norms, q)
     del x, q, index, cache, gt_i
     torch.cuda.empty_cache()
 
@@ -709,6 +788,306 @@ def phase_rabitq_main(torch, dev, n=1_048_576, d=1024, nq=256):
     torch.cuda.empty_cache()
     return launches
 
+# ---------------------------------------------------------------- phase 9
+def run_mask(torch, nb, frac, seed, run=8):
+    """(nb,) i32 mask with max(1, round(frac·nb)) tiles in contiguous runs
+    of up to `run` tiles at seeded positions (what cluster-sorted rows give)."""
+    g = torch.Generator().manual_seed(seed)
+    want = max(1, round(frac * nb))
+    m = torch.zeros((nb,), dtype=torch.int32)
+    while int(m.sum()) < want:
+        start = int(torch.randint(0, nb, (1,), generator=g))
+        m[start:start + min(run, want - int(m.sum()))] = 1
+    return m
+
+
+def gather_masks(torch, nb, dev, seed=0):
+    """Phase 9's tile masks over nb tiles."""
+    g = torch.Generator().manual_seed(seed)
+    rand = (torch.rand((nb,), generator=g) < 0.25).to(torch.int32)
+    rand[nb // 2] = 1
+    one, last = torch.zeros((nb,), dtype=torch.int32), torch.zeros((nb,), dtype=torch.int32)
+    one[nb // 3] = 1
+    last[-1] = 1
+    masks = {"all": torch.ones((nb,), dtype=torch.int32), "25% random": rand,
+             "5% runs": run_mask(torch, nb, 0.05, seed + 1), "one tile": one,
+             "last partial tile": last, "none": torch.zeros((nb,), dtype=torch.int32)}
+    return {name: m.to(dev) for name, m in masks.items()}
+
+
+def check_gather(torch, args, mask, k, what):
+    """One f32 gather scan held against its plain version; returns the
+    kernel's (scores, ids) and the largest score error.  Ids lie in
+    masked-in tiles below the limit; no tile gives -inf with id 0."""
+    from vq_tpu_torch.kernels import packed_scan as pk
+
+    a = {**args, "tile_mask": mask}
+    ks, ki = pk.packed_scan_topk(**a)
+    cnt = int(mask.sum())
+    if cnt == 0:
+        require(bool((ks == -np.inf).all() and (ki == 0).all()), f"{what}: empty mask")
+        return ks, ki, 0.0
+    require(bool((mask[ki.long() // 512] != 0).all() and (ki < a["limit"]).all()),
+            f"{what}: ids outside the masked-in rows")
+    rs, ri = pk.packed_scan_topk_plain(**{**a, "k": k + 1})
+    err, _, _ = check_topk_f32(torch, ks, ki, rs, ri, k, packed_tol(torch, a), what)
+    return ks, ki, err
+
+
+def phase_gather_kernels(torch, dev, results, n=100_000, d=1024, nq=256):
+    """The gather mode against its plain version (see the module docstring)."""
+    from vq_tpu_torch import Metric
+    from vq_tpu_torch.kernels import packed_scan as pk
+
+    t0 = time.perf_counter()
+    pk.reset_launch_counts()
+    x, q, _ = packed_corpus(torch, n, d, nq, seed=11, dev=dev, lognormal=True)
+    norms = torch.linalg.norm(x, dim=1)
+    configs = packed_configs(torch, x, q, norms, tile_cache=True)
+    nb = -(-n // 512)
+    masks = gather_masks(torch, nb, dev)
+    log(f"[phase 9] corpus N={n} ({nb} tiles) D={d} Q={nq}; order-preserving caches; masks "
+        + ", ".join(f"{name} {int(m.sum())}" for name, m in masks.items()))
+    r = results.setdefault("packed_scan_topk_gather",
+                           {"max_abs_err": 0.0, "times": {}, "bounds": {}})
+    for tag, args, _, _, packed in configs:
+        require(packed.perm is None, f"{tag}: the cache must keep the rows' order")
+        worst, worst_rec, max_frac = 0.0, 1.0, 0.0
+        for mname, mask in masks.items():
+            cnt = int(mask.sum())
+            for metric in (Metric.L2, Metric.IP, Metric.NIP):
+                for k in (10, 100):
+                    what = f"gather {tag} {mname} {metric.name} k={k}"
+                    ks, ki, err = check_gather(torch, args(metric, k, False, False), mask, k,
+                                               what)
+                    worst = max(worst, err)
+                    if mname == "all":
+                        ds, di = pk.packed_scan_topk(**args(metric, k, False, False))
+                        require(torch.equal(ds, ks) and torch.equal(di, ki),
+                                f"{what}: differs from the dense kernel")
+                    ps_, pi, pc = pk.packed_scan_topk(**{**args(metric, k, False, True),
+                                                        "tile_mask": mask})
+                    require(torch.equal(pi, ki) and torch.equal(ps_, ks),
+                            f"{what} prune: differs from prune off")
+                    units = pk.prune_units(nq, packed.factors.shape[1], dev, tiles=cnt)
+                    require(int(pc) <= units, f"{what} prune: {int(pc)} > {units} pairs")
+                    max_frac = max(max_frac, int(pc) / max(units, 1))
+            a = {**args(Metric.L2, 10, False, False), "tile_mask": mask}
+            base = pk.packed_scan_topk(**a)
+            for cap in (cnt, nb, max(1, cnt // 2)):  # at, above and below the count
+                capped = pk.packed_scan_topk(**{**a, "mask_cap": cap})
+                require(torch.equal(capped[0], base[0]) and torch.equal(capped[1], base[1]),
+                        f"gather {tag} {mname}: mask_cap={cap} changed the result")
+            if cnt:
+                ab = {**args(Metric.L2, 10, True, False), "tile_mask": mask}
+                rec = recall(pk.packed_scan_topk_plain(**ab)[1].cpu(),
+                             pk.packed_scan_topk(**ab)[1].cpu(), 10)
+                worst_rec = min(worst_rec, rec)
+                require(rec >= BF16_MIN_RECALL, f"gather bf16 {tag} {mname}: recall {rec}")
+        r["max_abs_err"] = max(r["max_abs_err"], worst)
+        line = (f"[phase 9] {tag}: f32 max_abs_err={worst:.3e}; every tile = dense bit for "
+                f"bit; no tile -inf/id 0; prune ids = unpruned, largest scanned fraction of "
+                f"masked-in pairs {max_frac:.3f}; mask_cap never changes the result; lowest "
+                f"bf16 recall@10 vs plain bf16 {worst_rec:.4f}")
+        if not r["times"]:  # times on the first configuration, L2 k=10 bf16
+            for mname in ("25% random", "all"):
+                a = {**args(Metric.L2, 10, True, False), "tile_mask": masks[mname]}
+                tk = cuda_ms(torch, lambda: pk.packed_scan_topk(**a))
+                tp = cuda_ms(torch, lambda: pk.packed_scan_topk_plain(**a))
+                bnd = packed_bound(torch, a)
+                line += (f"; {mname} mask: gather kernel {tk:.3f} ms, plain {tp:.3f} ms, "
+                         f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+                r["times"][mname], r["bounds"][mname] = (tk, tp), bnd
+            a = args(Metric.L2, 10, True, False)
+            line += f"; dense kernel {cuda_ms(torch, lambda: pk.packed_scan_topk(**a)):.3f} ms"
+        log(line)
+    require_launched({"gather": pk.packed_scan_topk.gather_launches},
+                     "the gather checks never launched the gather kernel")
+    torch.cuda.synchronize()
+    log(f"[phase 9] gather kernel checks ok ({time.perf_counter() - t0:.3f} s)")
+    del x, q, norms, configs
+    torch.cuda.empty_cache()
+
+
+def gather_table(torch, dev, saq, codes, norms, q, k=100):
+    """Phase 9's time table on phase 7's SAQ codes: the dense kernel against
+    the gather mode at 100/25/5/1% of tiles (contiguous runs), bf16, k=100,
+    on an order-preserving cache; dense timed first and last."""
+    from vq_tpu_torch import Metric
+    from vq_tpu_torch.kernels import packed_scan as pk
+    from vq_tpu_torch.methods import saq as sq
+
+    cache = saq.prepare_tile_cache(codes, norms=norms)
+    nb = cache.factors.shape[1] // 512
+    a = sq.packed_scan_args(saq.plan, saq.params, q, cache, k, Metric.L2, use_bf16=True)
+    cells = [("dense", None)] + [(f"gather {f:.0%}", run_mask(torch, nb, f, seed=7).to(dev))
+                                 for f in (1.0, 0.25, 0.05, 0.01)] + [("dense again", None)]
+    parts = []
+    for name, mask in cells:
+        am = a if mask is None else {**a, "tile_mask": mask}
+        ms = cuda_ms(torch, lambda: pk.packed_scan_topk(**am))
+        bnd = packed_bound(torch, am)
+        tiles = nb if mask is None else int(mask.sum())
+        parts.append(f"{name} ({tiles} tiles) {ms:.3f} ms [bound {bnd[0]:.4f} {bnd[1]}]")
+    log(f"[phase 9] N={cache.num_rows} D={q.shape[1]} Q={q.shape[0]} k={k} bf16 (CUDA events, "
+        f"median of 5): " + "; ".join(parts))
+    del cache
+
+
+# ---------------------------------------------------------------- phase 10
+def fullrank_corpus(torch, n, d, nq, seed, dev, rank=None, csize=100, spread=1.0,
+                    block=65536):
+    """bench.py:441-475: planted neighbourhoods at full rank, rows
+    z·A with z = centre + spread·N(0, I), A (rank, D) with column scale
+    (1+i)^-0.5, unit-normalized; made block by block on the card."""
+    rank = rank or d
+    g = torch.Generator(device=dev).manual_seed(seed)
+    kc = n // csize
+    a = torch.randn((rank, d), generator=g, device=dev)
+    a = a * (1.0 + torch.arange(d, device=dev)) ** -0.5
+    cents = torch.randn((kc, rank), generator=g, device=dev)
+    x = torch.empty((n, d), device=dev)
+    for i0 in range(0, n, block):
+        rows = torch.arange(i0, min(n, i0 + block), device=dev)
+        xb = (cents[rows % kc] + spread * torch.randn((rows.shape[0], rank), generator=g,
+                                                      device=dev)) @ a
+        x[i0:i0 + rows.shape[0]] = xb / torch.linalg.norm(xb, dim=1, keepdim=True)
+    qdoc = torch.randint(0, kc, (nq,), generator=g, device=dev)
+    qv = (cents[qdoc] + spread * torch.randn((nq, rank), generator=g, device=dev)) @ a
+    return x, qv / torch.linalg.norm(qv, dim=1, keepdim=True)
+
+
+def ivf_search(torch, index, q, nprobe, k, gt, what):
+    """One search setting: the result, its checks, QPS from
+    ``sustained_search_s`` and the masked-in tile fraction."""
+    index.ivf_cfg = dataclasses.replace(index.ivf_cfg, nprobe=nprobe)
+    ids, scores = index.search_with_scores(q, k)
+    tiles = index.last_tiles_scanned
+    nq, nb = q.shape[0], -(-index.num_rows // 512)
+    require(ids.shape == (nq, k) and scores.shape == (nq, k), f"{what} result shape")
+    require(bool(np.isfinite(scores).all()) and int(ids.max()) < index.num_rows,
+            f"{what} result values")
+    require(bool((np.diff(scores, axis=1) >= 0).all()), f"{what} not ascending")
+    sec = index.sustained_search_s(q, k, reps=5, outer=3)
+    recalls = ", ".join(f"recall@{r} {recall(gt, ids, r):.4f}" for r in (1, 10, 100))
+    log(f"[phase 10] {what}: {sec * 1e3:.3f} ms/search (sustained, CUDA events), QPS "
+        f"{nq / sec:.1f}; tiles masked in {tiles}/{nb} = {tiles / nb:.4f}; {recalls}")
+    return ids, scores
+
+
+def phase_ivf_main(torch, dev, n=1_048_576, d=1536, nq=256, k_cl=4096, nprobes=(50, 200),
+                   nq_small=8, profile=True):
+    """bench.py:478-651 on the port (module docstring); nprobe = k_cl is the
+    full probe."""
+    from vq_tpu_torch import IVFConfig, KMeansConfig, Metric, RaBitQConfig, SAQConfig
+    from vq_tpu_torch import SearchConfig
+    from vq_tpu_torch._device import bf16_supported, make_generator
+    from vq_tpu_torch.data.sampling import chunk_rows_for_bytes, host_sample_rows
+    from vq_tpu_torch.index.ivf import chunked_assign
+    from vq_tpu_torch.index.ivf_packed import IvfPackedFlatIndex, tile_mask_from_probes
+    from vq_tpu_torch.kernels import packed_scan as pk
+    from vq_tpu_torch.kernels.adc import _finalize, exact_topk
+    from vq_tpu_torch.kernels.kmeans import kmeans, pairwise_sqdist_xc
+    from vq_tpu_torch.kernels.topk import ordered_topk
+    from vq_tpu_torch.methods import saq as sq
+    from vq_tpu_torch.methods.rabitq import RaBitQ
+
+    k = 100
+    (x, q), t_gen = wall_s(torch, lambda: fullrank_corpus(torch, n, d, nq, seed=11, dev=dev))
+    (_, gt_i), t_gt = wall_s(torch, lambda: exact_topk(q, x, k))
+    gt = gt_i.cpu().numpy()
+    log(f"[phase 10] planted full-rank corpus N={n} D={d} Q={nq} on {dev}: {t_gen:.3f} s "
+        f"({x.numel() * 4 / 1e9:.2f} GB); ground truth k={k} {t_gt:.3f} s")
+    kmc = KMeansConfig(iters=10, max_points_per_centroid=64)
+    cap = min(n, max(200_000, kmc.max_points_per_centroid * k_cl))
+    cents, t_km = wall_s(torch, lambda: kmeans(make_generator(kmc.seed, dev),
+                                               host_sample_rows(x, cap, kmc.seed), k_cl, kmc))
+    asn, t_asn = wall_s(torch, lambda: chunked_assign(x, cents, chunk_rows_for_bytes(d)))
+    pk.reset_launch_counts()
+    saq = sq.SAQ(SAQConfig(bits_per_dim=2.0, use_pca=True))  # no device: the corpus's
+    _, t_qfit = wall_s(torch, lambda: saq.fit(host_sample_rows(x, 200_000, kmc.seed)))
+    index = IvfPackedFlatIndex(saq, IVFConfig(k_cl, nprobes[0], kmc), SearchConfig(use_bf16=True))
+    _, t_fit = wall_s(torch, lambda: index.fit(x, coarse=(cents, asn)))
+    require(index.cache.factors.device == x.device and index.cache.perm is None,
+            "the IVF cache left the card or lost the rows' order")
+    nb = index.cache.factors.shape[1] // 512
+    log(f"[phase 10] build: coarse k-means K={k_cl} on {min(cap, n)} rows {t_km:.3f} s; "
+        f"assignment {t_asn:.3f} s; SAQ fit {t_qfit:.3f} s (plan bits {saq.plan.seg_bits}, "
+        f"{saq.plan.code_bytes} code bytes/row); encode + pack {t_fit:.3f} s; {nb} tiles; "
+        f"prune hint {index.cache.prune_hint}")
+    full = {}
+    for qq, gq, probes in ((q, gt, (k_cl,) + tuple(nprobes)),
+                           (q[:nq_small], gt[:nq_small], (k_cl, nprobes[0]))):
+        for nprobe in probes:
+            ids, scores = ivf_search(torch, index, qq, nprobe, k, gq,
+                                     f"SAQ bpd=2 Q={qq.shape[0]} nprobe={nprobe} k={k}")
+            if nprobe == k_cl:
+                full[qq.shape[0]] = (ids, scores)
+            else:
+                log(f"[phase 10]   recall@{k} vs nprobe={k_cl}: "
+                    f"{recall(full[qq.shape[0]][0], ids, k):.4f}")
+    rbq = RaBitQ(RaBitQConfig(num_bits=2))
+    rindex = IvfPackedFlatIndex(rbq, IVFConfig(k_cl, nprobes[0], kmc), SearchConfig(use_bf16=True))
+    _, t_rfit = wall_s(torch, lambda: rindex.fit(x, coarse=(cents, asn)))
+    log(f"[phase 10] RaBitQ B=2 build (fit + encode + pack) {t_rfit:.3f} s")
+    ivf_search(torch, rindex, q, nprobes[0], k, gt, f"RaBitQ B=2 Q={nq} nprobe={nprobes[0]} k={k}")
+    launches = {"packed_scan_topk_gather": pk.packed_scan_topk.gather_launches}
+    log(f"[phase 10] launches during the IVF path: {launches}, dense "
+        f"{pk.packed_scan_topk.launches}")
+    require_launched(launches, "the IVF path never launched the gather kernel")
+    # full probe = the unmasked (dense) kernel over the same cache, bit for bit
+    metric = index.search_cfg.metric
+    bf16 = bf16_supported(dev)  # the index's rule: bf16 on a card, f32 on the CPU
+    for qq in (q, q[:nq_small]):
+        s, pos = saq.packed_scan_raw(qq, index.cache, k, metric, use_bf16=bf16)
+        ws, wi = _finalize(s, index.ids_sorted[pos.long()], metric, torch.sum(qq * qq, dim=-1))
+        ids, scores = full[qq.shape[0]]
+        require(np.array_equal(ids, wi.cpu().numpy().astype(np.uint32)) and
+                np.array_equal(scores, ws.cpu().numpy()),
+                f"Q={qq.shape[0]} nprobe={k_cl} differs from the unmasked kernel")
+    # the gather kernel against its plain version at the path's own masks
+    for qq in (q, q[:nq_small]):
+        _, probe = ordered_topk(-pairwise_sqdist_xc(qq, index.centroids), nprobes[0])
+        mask = tile_mask_from_probes(probe, index.cl_first, index.cl_last, k_cl)
+        a = sq.packed_scan_args(saq.plan, saq.params, qq, index.cache, k, Metric.L2,
+                                use_bf16=False)
+        _, _, err = check_gather(torch, a, mask, k,
+                                 f"IVF Q={qq.shape[0]} nprobe={nprobes[0]} gather f32")
+        ab = {**a, "use_bf16": bf16, "tile_mask": mask}
+        rec = recall(pk.packed_scan_topk_plain(**ab)[1].cpu(), pk.packed_scan_topk(**ab)[1].cpu(),
+                     k)
+        require(rec >= BF16_MIN_RECALL, f"IVF gather bf16 recall {rec}")
+        log(f"[phase 10] Q={qq.shape[0]} nprobe={nprobes[0]} mask ({int(mask.sum())} tiles): "
+            f"gather vs plain f32 max_abs_err={err:.3e}, bf16 recall@{k} vs plain bf16 "
+            f"{rec:.4f}; nprobe={k_cl} = unmasked kernel bit for bit")
+    if profile:
+        index.ivf_cfg = dataclasses.replace(index.ivf_cfg, nprobe=nprobes[0])
+        profile_search(torch, index, q, ks=(k,), tag=" IVF")
+        # each stage of one search alone (CUDA events): the routing product,
+        # top-nprobe, the mask, its compaction, the scan (compaction, gather
+        # kernel and merge launch: one packed_scan_topk call)
+        cd = pairwise_sqdist_xc(q, index.centroids)
+        probe = ordered_topk(-cd, nprobes[0])[1]
+        mask = tile_mask_from_probes(probe, index.cl_first, index.cl_last, k_cl)
+        a = {**sq.packed_scan_args(saq.plan, saq.params, q, index.cache, k, Metric.L2),
+             "tile_mask": mask}
+        stages = {
+            "routing product": lambda: pairwise_sqdist_xc(q, index.centroids),
+            "top-nprobe": lambda: ordered_topk(-cd, nprobes[0]),
+            "mask build": lambda: tile_mask_from_probes(probe, index.cl_first, index.cl_last,
+                                                        k_cl),
+            "compaction": lambda: pk.compact_tile_mask(mask),
+            "query side (rotations)": lambda: sq.packed_scan_args(saq.plan, saq.params, q,
+                                                                  index.cache, k, Metric.L2),
+            "scan (compaction + gather kernel + merge)": lambda: pk.packed_scan_topk(**a),
+        }
+        log(f"[profile] IVF stages nprobe={nprobes[0]} Q={nq} (CUDA events, median of 5): "
+            + "; ".join(f"{name} {cuda_ms(torch, fn):.3f} ms" for name, fn in stages.items()))
+    del x, q, index, rindex, cents, asn
+    torch.cuda.empty_cache()
+    return launches["packed_scan_topk_gather"]
+
+
 
 def main() -> int:
     import torch
@@ -747,21 +1126,26 @@ def main() -> int:
     launches = phase_main(torch, dev)
     phase_gate(torch, dev)
     launches["packed_scan_topk"] = phase_saq_main(torch, dev) + phase_rabitq_main(torch, dev)
-    jax_side = sorted(m for m in sys.modules if m.split(".")[0] == "jax" or m.startswith(
-        ("vq_tpu.kernels", "vq_tpu.methods", "vq_tpu.index", "vq_tpu.data")))
-    require(not jax_side, f"JAX modules were imported: {jax_side[:5]}")
+    phase_gather_kernels(torch, dev, results)
+    launches["packed_scan_topk_gather"] = phase_ivf_main(torch, dev)
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "vq_tpu"))
+    require(not leaked, f"JAX or JAX-package modules were imported: {leaked[:5]}")
 
     kernels = []
     for name, src, replaces in (
             ("pq_scan_topk_fused", "pq_scan.cu", "vq_tpu/kernels/pallas_scan.py:330"),
             ("pq_score_all", "pq_scan.cu", "vq_tpu/kernels/pallas_scan.py:120"),
-            ("packed_scan_topk", "packed_scan.cu", "vq_tpu/kernels/pallas_packed.py:569")):
-        # times at the main path's configuration (the first one measured)
-        tk, tp = next(iter(results[name]["times"].values()))
+            ("packed_scan_topk", "packed_scan.cu", "vq_tpu/kernels/pallas_packed.py:569"),
+            ("packed_scan_topk_gather", "packed_scan.cu", "vq_tpu/kernels/pallas_packed.py:754")):
+        # times at the first configuration measured; no single PyTorch call
+        # decodes, scores and keeps a top-k, so there is no library time
+        tag = next(iter(results[name]["times"]))
+        tk, tp = results[name]["times"][tag]
+        bms, bby = results[name]["bounds"][tag]
         kernels.append({"name": name, "route": "cuda", "source": f"vq_tpu_torch/csrc/{src}",
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": results[name]["max_abs_err"], "ms": tk,
-                        "plain_ms": tp})
+                        "plain_ms": tp, "bound_ms": bms, "bound_by": bby, "library_ms": None})
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

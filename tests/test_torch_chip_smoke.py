@@ -65,6 +65,30 @@ def test_phase_packed_paths_rehearsal(cpu_smoke):
     assert cs.phase_rabitq_main(torch, cpu_smoke, n=4000, d=128, nq=8) == 0
 
 
+def test_phase_gather_kernels_rehearsal(cpu_smoke):
+    """Phase 9 at N=3000 (6 tiles, the last partial), D=128."""
+    results = {}
+    cs.phase_gather_kernels(torch, cpu_smoke, results, n=3000, d=128, nq=8)
+    assert set(results["packed_scan_topk_gather"]["times"]) == {"25% random", "all"}
+    assert set(results["packed_scan_topk_gather"]["bounds"]) == {"25% random", "all"}
+
+
+def test_phase_ivf_main_rehearsal(cpu_smoke, monkeypatch):
+    """Phase 10 at N=6000, D=64, K=32 (nprobe 2 and 8, the full probe 32);
+    its stage timings run, the profiler (no device time here) does not."""
+    monkeypatch.setattr(cs, "profile_search", lambda *a, **k: None)
+    assert cs.phase_ivf_main(torch, cpu_smoke, n=6000, d=64, nq=16, k_cl=32, nprobes=(2, 8),
+                             nq_small=4) == 0
+
+
+def test_bounds_are_the_larger_of_bytes_and_operations():
+    assert cs.bound_ms(3.35e12, 0.5) == (1000.0, "bytes")
+    assert cs.bound_ms(3.35e9, 0.5) == (500.0, "operations")
+    mask = torch.tensor([1, 0, 1], dtype=torch.int32)
+    assert cs.scanned_rows(torch, 1536, 1300) == 1300
+    assert cs.scanned_rows(torch, 1536, 1300, mask) == 512 + 276
+
+
 def test_exits_nonzero_without_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert cs.main() != 0

@@ -13,8 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from vq_tpu_torch import KMeansConfig, Metric, PQConfig, RaBitQConfig, SAQConfig
+from vq_tpu_torch import IVFConfig, KMeansConfig, Metric, PQConfig, RaBitQConfig, SAQConfig
 from vq_tpu_torch.index.flat import FlatQuantizedIndex
+from vq_tpu_torch.index.ivf_packed import IvfPackedFlatIndex
 from vq_tpu_torch.kernels import packed_scan as pk
 from vq_tpu_torch.kernels import pq_scan as ps
 from vq_tpu_torch.kernels.adc import scan_codes_topk
@@ -128,3 +129,38 @@ def test_packed_wrapper_rejects_bad_inputs_on_the_card(dev):
         pk.packed_scan_topk(q.cpu(), qa, (words,), fac, (), (seg,), 5, metric_kind="ip")
     with pytest.raises(ValueError):
         pk.packed_scan_topk(q, qa, (words.float(),), fac, (), (seg,), 5, metric_kind="ip")
+
+
+def test_host_corpus_goes_to_the_card_by_default(dev):
+    """No device and a numpy corpus: the card."""
+    x = np.random.default_rng(3).standard_normal((2000, 32)).astype(np.float32)
+    index = FlatQuantizedIndex(SAQ(SAQConfig(bits_per_dim=2.0, block_dims=16))).fit(x)
+    assert index.device.type == "cuda" and index._scan_cache.factors.is_cuda
+    assert index.search(x[:3], 5).shape == (3, 5)
+
+
+@pytest.mark.parametrize("name", ["saq", "rabitq"])
+def test_ivf_packed_search_launches_the_gather_kernel(dev, name):
+    """One gather launch per search (no dense launch), everything on the
+    card; the full probe equals the unmasked kernel bit for bit."""
+    x = torch.randn((6000, 64), generator=torch.Generator(dev).manual_seed(2), device=dev)
+    q = (SAQ(SAQConfig(bits_per_dim=2.0, block_dims=16)) if name == "saq"
+         else RaBitQ(RaBitQConfig(num_bits=2)))
+    index = IvfPackedFlatIndex(q, IVFConfig(16, 2, KMeansConfig(iters=3))).fit(x)
+    assert index.cache.factors.is_cuda and index.cache.perm is None
+    pk.reset_launch_counts()
+    ids, _ = index.search_with_scores(x[:5], 10)
+    assert ids.shape == (5, 10) and 0 < index.last_tiles_scanned <= 12
+    assert (pk.packed_scan_topk.gather_launches, pk.packed_scan_topk.launches) == (1, 0)
+    _, full, _ = index._search(x[:5], 10, 16)
+    s, pos = q.packed_scan_raw(x[:5], index.cache, 10, Metric.L2)
+    assert torch.equal(full, index.ids_sorted[pos.long()].to(full.dtype))
+
+
+def test_cuda_tile_mask_on_a_cpu_cache_raises(dev):
+    seg = pk.make_segspec(2, 32, "uniform", -1)
+    q, qa = torch.zeros((3, 32)), torch.zeros((3,))
+    words, fac = torch.zeros((32, 32), dtype=torch.int32), torch.ones((1, 512))
+    with pytest.raises(ValueError, match="tile_mask"):
+        pk.packed_scan_topk(q, qa, (words,), fac, (), (seg,), 5, metric_kind="ip",
+                            tile_mask=torch.ones((1,), dtype=torch.int32, device=dev))

@@ -69,7 +69,8 @@ def _pair(x, metric):
     j = JaxFlat(JaxPQ(CFG, seed=0), SearchConfig(metric=metric)).fit(x)
     t = convert.flat_index_from_numpy(
         np.asarray(j.quantizer.params.codebooks), np.asarray(j.codes), np.asarray(j.norms),
-        j.num_rows, j.search_cfg, CFG)
+        j.num_rows, convert.config_from_jax(j.search_cfg), convert.config_from_jax(CFG),
+        device="cpu")
     return j, t
 
 
@@ -98,7 +99,7 @@ def test_save_load_roundtrip(data, tmp_path):
     _, t = _pair(x, Metric.NIP)
     path = str(tmp_path / "flat.pkl")
     t.save(path)
-    back = FlatQuantizedIndex(PQ(CFG)).load(path)
+    back = FlatQuantizedIndex(PQ(CFG, device="cpu")).load(path)
     assert back.num_rows == t.num_rows and back.search_cfg == t.search_cfg
     for k in (10, 100):
         np.testing.assert_array_equal(back.search(q, k), t.search(q, k))
@@ -109,7 +110,7 @@ def test_port_fit_end_to_end_recall_close_to_jax(data):
     within 0.1 of the JAX package's on the same data."""
     x, q = data
     _, gt = exact_topk(torch.from_numpy(q), torch.from_numpy(x), 10)
-    t = FlatQuantizedIndex(PQ(CFG, seed=0)).fit(x)
+    t = FlatQuantizedIndex(PQ(CFG, seed=0, device="cpu")).fit(x)
     j = JaxFlat(JaxPQ(CFG, seed=0)).fit(x)
     r_t = recall_at_k(gt.numpy(), t.search(q, 10), 10)
     r_j = recall_at_k(gt.numpy(), j.search(q, 10), 10)
@@ -138,10 +139,12 @@ def _packed_pair(x, quantizers, name, metric):
     jq = quantizers[name]
     j = JaxFlat(jq, SearchConfig(metric=metric)).fit(x)
     params = jax.tree_util.tree_map(np.asarray, jq.params)
-    tq = (convert.saq_from_numpy(jq.plan, params, SAQ_CFG) if name == "saq"
-          else convert.rabitq_from_numpy(params, RABITQ_CFG))
+    tq = (convert.saq_from_numpy(jq.plan, params, convert.config_from_jax(SAQ_CFG),
+                                 device="cpu") if name == "saq"
+          else convert.rabitq_from_numpy(params, convert.config_from_jax(RABITQ_CFG),
+                                         device="cpu"))
     t = convert.flat_index_of(tq, np.asarray(j.codes), np.asarray(j.norms), j.num_rows,
-                              j.search_cfg)
+                              convert.config_from_jax(j.search_cfg))
     return j, t
 
 
@@ -176,13 +179,14 @@ def test_packed_save_load_roundtrip(data, packed_quantizers, tmp_path, name):
     _, t = _packed_pair(x, packed_quantizers, name, Metric.NIP)
     path = str(tmp_path / "flat.pkl")
     t.save(path)
-    fresh = SAQ(SAQ_CFG) if name == "saq" else RaBitQ(RABITQ_CFG)
+    fresh = SAQ(SAQ_CFG, device="cpu") if name == "saq" else RaBitQ(RABITQ_CFG, device="cpu")
     back = FlatQuantizedIndex(fresh).load(path)
     assert back._scan_cache is not None
     for k in (10, 100):
         np.testing.assert_array_equal(back.search(q, k), t.search(q, k))
     qpath = str(tmp_path / "quantizer.pkl")
     t.quantizer.save(qpath)
-    loaded = (SAQ(SAQ_CFG) if name == "saq" else RaBitQ(RABITQ_CFG)).load(qpath)
+    loaded = (SAQ(SAQ_CFG, device="cpu") if name == "saq"
+              else RaBitQ(RABITQ_CFG, device="cpu")).load(qpath)
     np.testing.assert_array_equal(loaded.compress(x[:50]).numpy(),
                                   t.quantizer.compress(x[:50]).numpy())

@@ -1,13 +1,17 @@
 """The port hides neither the device nor the kernels.
 
-* ``vq_tpu_torch`` never imports jax (checked in a fresh interpreter).
-* Asking for ``cuda`` without a card raises; nothing falls back to the CPU.
-* A quantizer built without a device takes its corpus's; a tensor on
-  another device than the CPU is never copied to it (``meta`` stands in
-  for a card here).
+* ``vq_tpu_torch`` never imports jax nor any module of the JAX package
+  ``vq_tpu`` (checked in a fresh interpreter after driving the Flat and
+  IVF-packed searches).
+* The card is the default: asking for ``cuda``, or for no device with host
+  data, without a card raises; nothing falls back to the CPU.
+* A quantizer built without a device takes a tensor corpus's device; a
+  tensor on another device than the CPU is never copied to it (``meta``
+  stands in for a card here).
 * The kernel build raises when ``nvcc`` is missing.
 * A CPU tensor runs the plain versions and leaves the launch counters at 0
-  (the PQ kernels and the packed-code kernel of SAQ / RaBitQ).
+  (the PQ kernels and the packed-code kernel of SAQ / RaBitQ, dense and
+  gather).
 """
 
 import subprocess
@@ -18,10 +22,11 @@ import numpy as np
 import pytest
 import torch
 
-from vq_tpu.core.config import KMeansConfig, Metric, PQConfig, RaBitQConfig, SAQConfig
+from vq_tpu_torch import IVFConfig, KMeansConfig, Metric, PQConfig, RaBitQConfig, SAQConfig
 from vq_tpu_torch import _device
 from vq_tpu_torch.kernels import _build
 from vq_tpu_torch.index.flat import FlatQuantizedIndex
+from vq_tpu_torch.index.ivf_packed import IvfPackedFlatIndex
 from vq_tpu_torch.kernels import packed_scan as pk
 from vq_tpu_torch.kernels import pq_scan as ps
 from vq_tpu_torch.kernels.adc import scan_codes_topk
@@ -36,19 +41,27 @@ REPO = Path(__file__).resolve().parents[1]
 _NO_JAX = """
 import sys
 import numpy as np
-from vq_tpu_torch import KMeansConfig, PQConfig, RaBitQConfig, SAQConfig, convert
+from vq_tpu_torch import IVFConfig, KMeansConfig, PQConfig, RaBitQConfig, SAQConfig, convert
 from vq_tpu_torch.core import packing
 from vq_tpu_torch.index.flat import FlatQuantizedIndex
+from vq_tpu_torch.index.ivf_packed import IvfPackedFlatIndex
 from vq_tpu_torch.kernels import caq, lloyd1d, packed_scan
 from vq_tpu_torch.methods.pq import PQ
 from vq_tpu_torch.methods.rabitq import RaBitQ
 from vq_tpu_torch.methods.saq import SAQ
-x = np.random.default_rng(0).standard_normal((600, 16)).astype(np.float32)
-for q in (PQ(PQConfig(4, 4, KMeansConfig(iters=2))), SAQ(SAQConfig(2.0, block_dims=8)),
-          SAQ(SAQConfig(3.0, block_dims=8, codebook="exact")), RaBitQ(RaBitQConfig(2))):
+x = np.random.default_rng(0).standard_normal((1200, 16)).astype(np.float32)
+cpu = dict(device="cpu")
+for q in (PQ(PQConfig(4, 4, KMeansConfig(iters=2)), **cpu), SAQ(SAQConfig(2.0, block_dims=8), **cpu),
+          SAQ(SAQConfig(3.0, block_dims=8, codebook="exact"), **cpu),
+          RaBitQ(RaBitQConfig(2), **cpu)):
     ids = FlatQuantizedIndex(q).fit(x).search(x[:5], 3)
     assert ids.shape == (5, 3), ids.shape
-loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+for q in (SAQ(SAQConfig(2.0, block_dims=8), **cpu), RaBitQ(RaBitQConfig(2), **cpu)):
+    ivf = IvfPackedFlatIndex(q, IVFConfig(8, 2, KMeansConfig(iters=2))).fit(x)
+    ids = ivf.search(x[:5], 3)
+    assert ids.shape == (5, 3) and 0 < ivf.last_tiles_scanned <= 3, ids.shape
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "vq_tpu"))
 assert not loaded, loaded
 print("ok")
 """
@@ -72,11 +85,28 @@ def test_cuda_without_a_card_raises(monkeypatch):
 def test_quantizer_takes_the_device_of_its_corpus():
     x = np.random.default_rng(0).standard_normal((600, 16)).astype(np.float32)
     cfg = PQConfig(4, 4, KMeansConfig(iters=2))
-    for data in (x, torch.from_numpy(x)):
-        pq = PQ(cfg)
-        assert pq.device is None
+    for pq, data in ((PQ(cfg), torch.from_numpy(x)), (PQ(cfg, device="cpu"), x)):
         assert pq.fit(data).device == torch.device("cpu")
         assert pq.params.codebooks.device.type == "cpu"
+
+
+def test_host_corpus_without_a_device_goes_to_the_card(monkeypatch):
+    """No ``device=`` and a numpy corpus: the card, so without one every
+    entry point raises rather than land on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.random.default_rng(0).standard_normal((1100, 16)).astype(np.float32)
+    with pytest.raises(RuntimeError, match="cuda"):
+        _device.resolve_device(None)
+    for q in (PQ(PQConfig(4, 4, KMeansConfig(iters=2))), SAQ(SAQConfig(2.0, block_dims=8)),
+              RaBitQ(RaBitQConfig(2))):
+        assert q.device is None
+        with pytest.raises(RuntimeError, match="cuda"):
+            q.fit(x)
+        with pytest.raises(RuntimeError, match="cuda"):
+            FlatQuantizedIndex(type(q)(q.cfg)).fit(x)
+    with pytest.raises(RuntimeError, match="cuda"):
+        IvfPackedFlatIndex(SAQ(SAQConfig(2.0, block_dims=8)),
+                           IVFConfig(4, 1, KMeansConfig(iters=2))).fit(x)
 
 
 def test_device_tensors_never_leave_their_device():
@@ -130,13 +160,16 @@ def test_wrappers_refuse_other_devices():
 def test_cpu_tensors_leave_the_packed_counter_at_zero():
     x = np.random.default_rng(1).standard_normal((700, 16)).astype(np.float32)
     pk.reset_launch_counts()
-    for q in (SAQ(SAQConfig(2.0, block_dims=8)), RaBitQ(RaBitQConfig(2))):
+    for q in (SAQ(SAQConfig(2.0, block_dims=8), device="cpu"),
+              RaBitQ(RaBitQConfig(2), device="cpu")):
         index = FlatQuantizedIndex(q).fit(x)
         for k in (10, 100):
             index.search(x[:4], k)
         cache = q.prepare_scan(index.codes, norms=index.norms)
         q.packed_scan_raw(torch.from_numpy(x[:4]), cache, 5, Metric.L2)
-    assert pk.packed_scan_topk.launches == 0
+        ivf = IvfPackedFlatIndex(q, IVFConfig(4, 1, KMeansConfig(iters=2))).fit(x)
+        ivf.search(x[:4], 5)
+    assert pk.packed_scan_topk.launches == 0 and pk.packed_scan_topk.gather_launches == 0
 
 
 def test_packed_wrapper_refuses_other_devices():

@@ -8,7 +8,10 @@ feature-major).  Both sides compute in f32 (``use_bf16=False``; one bf16
 case rounds both sides' queries and values the same way).  Ids must be
 equal, in lax.top_k's order; scores agree to 1e-5 of the largest |score|
 (f32 sums of D = 92 products in another order).  With prune on, the
-count of tiles scanned must equal JAX's.  The CUDA kernel itself runs only
+count of tiles scanned must equal JAX's.  The gather mode (``tile_mask``,
+``mask_cap``) is held the same way against the Pallas gather kernel: only
+masked-in tiles, in ascending order, take part, in the prune sequence too,
+and ``mask_cap`` never changes a result.  The CUDA kernel itself runs only
 on a card (chip_smoke.py holds it against this plain version there).
 """
 
@@ -79,7 +82,8 @@ def _case(layout, family, seed=0, ties=False):
                 qprune=qprune, family=family, norm_col=nf - 1, r2_cols=(nf - 2,))
 
 
-def _jax(c, k, metric_kind, prune=False, limit=None, use_bf16=False):
+def _jax(c, k, metric_kind, prune=False, limit=None, use_bf16=False, tile_mask=None,
+         mask_cap=None):
     out = jpp.packed_scan_topk(
         jnp.asarray(c["q"]), jnp.asarray(c["qa"]), tuple(jnp.asarray(w) for w in c["words"]),
         jnp.asarray(c["factors"]), tuple(jnp.asarray(t) for t in c["lv"]), c["segs"], k,
@@ -87,19 +91,25 @@ def _jax(c, k, metric_kind, prune=False, limit=None, use_bf16=False):
         r2_cols=c["r2_cols"], limit=None if limit is None else jnp.int32(limit),
         interpret=True, use_bf16=use_bf16, prune=prune,
         tile_stats=jnp.asarray(c["stats"]) if prune else None,
-        qprune=jnp.asarray(c["qprune"]) if prune else None)
+        qprune=jnp.asarray(c["qprune"]) if prune else None,
+        tile_mask=None if tile_mask is None else jnp.asarray(tile_mask, jnp.int32),
+        mask_cap=mask_cap)
     return [np.asarray(a) for a in out]
 
 
-def _port(c, k, metric_kind, prune=False, limit=None, use_bf16=False):
-    packed = convert.packed_corpus_from_numpy(c["words"], c["factors"], N, c["stats"])
+def _port(c, k, metric_kind, prune=False, limit=None, use_bf16=False, tile_mask=None,
+          mask_cap=None):
+    packed = convert.packed_corpus_from_numpy(c["words"], c["factors"], N, c["stats"],
+                                              device="cpu")
     out = tps.packed_scan_topk(
         torch.from_numpy(c["q"]), torch.from_numpy(c["qa"]), packed.words, packed.factors,
         tuple(torch.from_numpy(t) for t in c["lv"]),
         tuple(tps.SegSpec(*s) for s in c["segs"]), k, family=c["family"],
         metric_kind=metric_kind, norm_col=c["norm_col"], r2_cols=c["r2_cols"], limit=limit,
         use_bf16=use_bf16, prune=prune, tile_stats=packed.tile_stats if prune else None,
-        qprune=torch.from_numpy(c["qprune"]) if prune else None)
+        qprune=torch.from_numpy(c["qprune"]) if prune else None,
+        tile_mask=None if tile_mask is None else torch.tensor(tile_mask, dtype=torch.int32),
+        mask_cap=mask_cap)
     return [t.numpy() for t in out]
 
 
@@ -111,7 +121,7 @@ def _assert_same(j, t, k=None):
     np.testing.assert_array_equal(t[1], ji)
     finite = np.isfinite(js)
     np.testing.assert_array_equal(np.isfinite(t[0]), finite)
-    scale = 1e-5 * max(1.0, float(np.abs(js[finite]).max()))
+    scale = 1e-5 * max(1.0, float(np.abs(js[finite]).max(initial=0.0)))
     np.testing.assert_allclose(t[0][finite], js[finite], rtol=0, atol=scale)
 
 
@@ -181,21 +191,78 @@ def test_planted_ties_match_pallas():
     np.testing.assert_array_equal(_port(c, 40, "ip")[1], np.tile(np.arange(40), (Q, 1)))
 
 
-def test_tile_mask_is_not_ported_yet():
-    c = _case(RABITQ_FAMILY, "rabitq")
-    packed = convert.packed_corpus_from_numpy(c["words"], c["factors"], N, c["stats"])
-    args = (torch.from_numpy(c["q"]), torch.from_numpy(c["qa"]), packed.words, packed.factors,
-            tuple(torch.from_numpy(t) for t in c["lv"]),
-            tuple(tps.SegSpec(*s) for s in c["segs"]), 5)
-    with pytest.raises(NotImplementedError, match="gather"):
-        tps.packed_scan_topk(*args, metric_kind="ip", tile_mask=torch.ones(N // 512))
-    with pytest.raises(NotImplementedError, match="gather"):
-        tps.packed_scan_topk(*args, metric_kind="ip", mask_cap=2)
+# (mask over the case's 4 tiles, limit): every tile, none, a random pick, one
+# tile, and only the last tile made partial by `limit`
+MASKS = {"all": ([1, 1, 1, 1], None), "none": ([0, 0, 0, 0], None),
+         "random": ([1, 0, 1, 1], None), "one": ([0, 1, 0, 0], None),
+         "last_partial": ([0, 0, 0, 1], 1800)}
+
+
+@pytest.mark.parametrize("mask_name", list(MASKS))
+def test_gather_matches_pallas(mask_name):
+    """The plain twin's gather mode against the Pallas gather kernel at k=5
+    and 10 (ids equal, scores to 1e-5 of the largest): every id lies in a
+    masked-in tile below `limit`; all tiles equal the dense scan, no tile
+    gives −inf with id 0."""
+    mask, limit = MASKS[mask_name]
+    c = _case(SEG_FAMILY, "seg", seed=9)
+    j = _jax(c, 10, "l2", limit=limit, tile_mask=mask)
+    for k in (5, 10):
+        t = _port(c, k, "l2", limit=limit, tile_mask=mask)
+        _assert_same(j, t)
+    finite = np.isfinite(t[0])
+    assert np.isin(t[1][finite] // 512, np.flatnonzero(mask)).all()
+    assert (t[1][finite] < (limit or N)).all()
+    if mask_name == "all":
+        dense = _port(c, 10, "l2")
+        np.testing.assert_array_equal(t[0], dense[0])
+        np.testing.assert_array_equal(t[1], dense[1])
+    if mask_name == "none":
+        assert np.isneginf(t[0]).all() and (t[1] == 0).all()
+
+
+@pytest.mark.parametrize("family,layout,metric_kind",
+                         [("seg", SEG_FAMILY, "l2"), ("rabitq", RABITQ_FAMILY, "ip")])
+def test_gather_prune_matches_pallas(family, layout, metric_kind):
+    """Prune over a mask: the bound test and the count run over the
+    masked-in tiles alone, so the count equals JAX's and is at most the
+    masked-in count; the ids equal the unpruned gather's."""
+    mask = [1, 0, 1, 1]
+    c = _case(layout, family, seed=3)
+    j = _jax(c, 5, metric_kind, prune=True, tile_mask=mask)
+    t = _port(c, 5, metric_kind, prune=True, tile_mask=mask)
+    _assert_same(j, t)
+    assert int(t[2]) == int(j[2]) <= sum(mask), (int(t[2]), int(j[2]))
+    np.testing.assert_array_equal(t[1], _port(c, 5, metric_kind, tile_mask=mask)[1])
+
+
+@pytest.mark.parametrize("mask_cap", [2, 3])
+def test_gather_mask_cap_never_changes_the_result(mask_cap):
+    """A cap below the masked-in count (3) sends JAX to its full grid, one
+    at the count to its short grid; the port ignores the cap: one result."""
+    mask = [1, 0, 1, 1]
+    c = _case(SEG_FAMILY, "seg", seed=4)
+    t = _port(c, 5, "ip", tile_mask=mask, mask_cap=mask_cap)
+    _assert_same(_jax(c, 5, "ip", tile_mask=mask, mask_cap=mask_cap), t)
+    for a, b in zip(t, _port(c, 5, "ip", tile_mask=mask)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_compact_tile_mask_is_jax_argsort(seed):
+    """The wrapper's compaction: masked-in ids first, ascending (JAX's
+    stable ``argsort(~mask)``), and their count."""
+    mask = np.random.default_rng(seed).random(37) < [0.5, 0.05, 0.0][seed]
+    ids, cnt = tps.compact_tile_mask(torch.from_numpy(mask.astype(np.int32)))
+    assert ids.dtype == torch.int32 and cnt.shape == (1,)
+    np.testing.assert_array_equal(ids.numpy(), np.argsort(~mask, kind="stable"))
+    assert int(cnt[0]) == mask.sum()
 
 
 def test_wrapper_validates_inputs_before_launch():
     c = _case(SEG_FAMILY, "seg")
-    packed = convert.packed_corpus_from_numpy(c["words"], c["factors"], N, c["stats"])
+    packed = convert.packed_corpus_from_numpy(c["words"], c["factors"], N, c["stats"],
+                                              device="cpu")
     segs = tuple(tps.SegSpec(*s) for s in c["segs"])
     lv = tuple(torch.from_numpy(t) for t in c["lv"])
     q, qa = torch.from_numpy(c["q"]), torch.from_numpy(c["qa"])
@@ -211,3 +278,9 @@ def test_wrapper_validates_inputs_before_launch():
         tps._check_inputs(q, qa, packed.words, packed.factors, (), segs, 10, **kw)
     with pytest.raises(ValueError, match="multiple of 512"):
         tps._check_inputs(q, qa, packed.words, packed.factors.T, lv, segs, 10, **kw)
+    tps._check_inputs(q, qa, packed.words, packed.factors, lv, segs, 10, **kw,
+                      tile_mask=torch.ones(N // 512, dtype=torch.bool))
+    for bad in (torch.ones(N // 512), torch.ones(N // 512 + 1, dtype=torch.int32)):
+        with pytest.raises(ValueError, match="tile_mask"):
+            tps._check_inputs(q, qa, packed.words, packed.factors, lv, segs, 10, **kw,
+                              tile_mask=bad)

@@ -29,7 +29,8 @@ def fitted():
     rng = np.random.default_rng(0)
     x = (rng.standard_normal((3000, 32)) * np.linspace(2.0, 0.2, 32)).astype(np.float32)
     jq = jpq.PQ(CFG, seed=0).fit(x)
-    tq = convert.pq_from_numpy(np.asarray(jq.params.codebooks), CFG)
+    tq = convert.pq_from_numpy(np.asarray(jq.params.codebooks), convert.config_from_jax(CFG),
+                               device="cpu")
     return x, jq, tq
 
 
@@ -76,7 +77,7 @@ def test_mse_and_compression_ratio_match_jax(fitted):
 def test_own_fit_quality_matches_jax(fitted):
     """The port's fit uses its own PRNG: reconstruction MSE within 5%."""
     x, jq, _ = fitted
-    tq = tpq.PQ(CFG, seed=0).fit(x)
+    tq = tpq.PQ(convert.config_from_jax(CFG), seed=0, device="cpu").fit(x)
     assert tq.params.codebooks.shape == (4, 64, 8)
     assert tq.reconstruction_mse(x) <= 1.05 * jq.reconstruction_mse(x)
 
@@ -97,7 +98,7 @@ def test_save_load_roundtrip(fitted, tmp_path):
     x, _, tq = fitted
     path = str(tmp_path / "pq.pkl")
     tq.save(path)
-    back = tpq.PQ(CFG).load(path)
+    back = tpq.PQ(convert.config_from_jax(CFG), device="cpu").load(path)
     assert back.dim == 32
     np.testing.assert_array_equal(back.params.codebooks.numpy(), tq.params.codebooks.numpy())
     np.testing.assert_array_equal(back.compress(x).numpy(), tq.compress(x).numpy())

@@ -45,7 +45,8 @@ def data():
 def pair(request, data):
     cfg = RaBitQConfig(num_bits=request.param)
     j = jrb.RaBitQ(cfg).fit(data[0])
-    t = convert.rabitq_from_numpy(jax.tree_util.tree_map(np.asarray, j.params), cfg)
+    t = convert.rabitq_from_numpy(jax.tree_util.tree_map(np.asarray, j.params),
+                                  convert.config_from_jax(cfg), device="cpu")
     return request.param, j, t, np.array(j.compress(data[0]))  # writable, for torch
 
 
@@ -123,7 +124,7 @@ def test_save_load_roundtrip(pair, tmp_path):
     bits, _, t, jc = pair
     path = str(tmp_path / "rabitq.pkl")
     t.save(path)
-    back = trb.RaBitQ(t.cfg).load(path)
+    back = trb.RaBitQ(t.cfg, device="cpu").load(path)
     assert back.code_bytes_per_vector() == t.code_bytes_per_vector()
     np.testing.assert_array_equal(back.decompress(jc).numpy(), t.decompress(jc).numpy())
     with pytest.raises(ValueError, match="num_bits"):

@@ -48,7 +48,8 @@ def pair(request, data):
     x = data[0]
     cfg = CFGS[request.param]
     j = jsaq.SAQ(cfg).fit(x)
-    t = convert.saq_from_numpy(j.plan, jax.tree_util.tree_map(np.asarray, j.params), cfg)
+    t = convert.saq_from_numpy(j.plan, jax.tree_util.tree_map(np.asarray, j.params),
+                               convert.config_from_jax(cfg), device="cpu")
     return request.param, j, t, np.array(j.compress(x))  # writable, for torch
 
 
@@ -128,8 +129,8 @@ def test_streaming_scan_matches_jax(pair, data, metric):
 def test_port_fit_quality_matches_jax(pair, data):
     name, j, _, _ = pair
     x = data[0]
-    t = tsaq.SAQ(CFGS[name]).fit(x)
-    assert t.device == torch.device("cpu")
+    t = tsaq.SAQ(convert.config_from_jax(CFGS[name])).fit(torch.from_numpy(x))
+    assert t.device == torch.device("cpu")  # a CPU tensor corpus: the CPU
     assert t.plan.seg_bits == j.plan.seg_bits and t.plan.seg_lens == j.plan.seg_lens
     mse_t = t.reconstruction_mse(x)
     mse_j = float(np.mean((np.asarray(j.decompress(j.compress(x))) - x) ** 2))
@@ -140,7 +141,7 @@ def test_save_load_roundtrip(pair, data, tmp_path):
     _, _, t, jc = pair
     path = str(tmp_path / "saq.pkl")
     t.save(path)
-    back = tsaq.SAQ(t.cfg).load(path)
+    back = tsaq.SAQ(t.cfg, device="cpu").load(path)
     assert back.plan == t.plan and back.code_bytes_per_vector() == t.code_bytes_per_vector()
     assert len(back.params.seg_rots) == t.plan.num_segments
     np.testing.assert_array_equal(back.decompress(jc).numpy(), t.decompress(jc).numpy())

@@ -7,21 +7,29 @@ counterpart's path and public functions so the two are easy to compare:
     kernels/pq_scan.py  ← vq_tpu/kernels/pallas_scan.py  hand-written CUDA
                           PQ scan kernels (csrc/pq_scan.cu) + plain twins
     kernels/packed_scan.py ← vq_tpu/kernels/pallas_packed.py  hand-written
-                          CUDA packed-code scan (csrc/packed_scan.cu) + plain twin
+                          CUDA packed-code scan, dense and tile-gather modes
+                          (csrc/packed_scan.cu) + plain twin
     kernels/kmeans.py   ← vq_tpu/kernels/kmeans.py    batched Lloyd k-means
     kernels/caq.py, kernels/lloyd1d.py, core/packing.py ← the same paths
+    core/config.py      ← vq_tpu/core/config.py       the configs (a copy)
+    native/             ← vq_tpu/native               host allocators (a copy)
     data/sampling.py    ← vq_tpu/data/sampling.py
     methods/pq.py, methods/saq.py, methods/rabitq.py ← the same paths
     index/flat.py       ← vq_tpu/index/flat.py
+    index/ivf.py        ← vq_tpu/index/ivf.py         IVF build helpers
+    index/ivf_packed.py ← vq_tpu/index/ivf_packed.py  probed-tile IVF index
     convert.py          JAX-package state (as numpy) → port state
 
-The port imports torch and never jax.  Framework-neutral pieces of the old
-package (``vq_tpu.core.config``, ``vq_tpu.metrics``) are imported, not copied;
-the configs the port's API takes are re-exported here, so a caller needs no
-import from ``vq_tpu``.
+The port imports torch and never jax, nor anything of the JAX package: what
+it needs of a framework-neutral module there (the configs, the native
+allocators) it keeps as its own copy.  Entry points run on the card
+(``cuda``) unless the caller asks for the CPU (``device="cpu"`` or CPU
+tensors).
 """
 
-from vq_tpu.core.config import (
+from vq_tpu_torch._device import bf16_supported, resolve_device
+from vq_tpu_torch.core.config import (
+    IVFConfig,
     KMeansConfig,
     Metric,
     PQConfig,
@@ -29,9 +37,8 @@ from vq_tpu.core.config import (
     SAQConfig,
     SearchConfig,
 )
-from vq_tpu_torch._device import bf16_supported, resolve_device
 
 __version__ = "0.1.0"
 
-__all__ = ["KMeansConfig", "Metric", "PQConfig", "RaBitQConfig", "SAQConfig", "SearchConfig",
-           "bf16_supported", "resolve_device"]
+__all__ = ["IVFConfig", "KMeansConfig", "Metric", "PQConfig", "RaBitQConfig", "SAQConfig",
+           "SearchConfig", "bf16_supported", "resolve_device"]

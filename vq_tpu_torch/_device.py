@@ -9,9 +9,13 @@ Two rules carried over from the JAX package:
   on the CPU, ``use_bf16=True`` silently computes in f32 so the same call
   sites run in the CPU tests and on the card.
 
-Asking for ``cuda`` on a machine without a card raises; nothing falls back
-to the CPU.  Host data (numpy, CPU tensors) is moved to the device it is
-asked to go to; a tensor on a card never leaves it (``to_device`` raises).
+The card is the default: with no device given, an entry point runs on
+``cuda`` (``resolve_device(None)``), and the CPU only when the caller asks
+for it (``device="cpu"``, or CPU tensors, as the tests do).  Asking for
+``cuda`` -- or asking for nothing -- on a machine without a card raises;
+nothing falls back to the CPU.  Host data (numpy, CPU tensors) is moved to
+the device it is asked to go to; a tensor on a card never leaves it
+(``to_device`` raises).
 """
 
 from __future__ import annotations
@@ -24,13 +28,23 @@ torch.backends.cudnn.allow_tf32 = False
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` → cpu; ``"cuda"`` without a card raises RuntimeError."""
-    dev = torch.device("cpu" if device is None else device)
+    """``None`` → cuda; ``"cuda"`` (or ``None``) without a card raises
+    RuntimeError."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but torch.cuda.is_available() is False")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def device_of(x, device=None) -> torch.device:
+    """Where code on ``x`` runs: ``device`` when given; else a tensor's own
+    device (the caller chose it), else (numpy, np.memmap, array-likes)
+    ``resolve_device(None)``, the card."""
+    if device is not None:
+        return resolve_device(device)
+    return x.device if isinstance(x, torch.Tensor) else resolve_device(None)
 
 
 def bf16_supported(device) -> bool:

@@ -2,7 +2,11 @@
 
 With these, both packages search the same codes with the same parameters:
 the caller takes ``np.asarray`` of the JAX objects (this module never
-imports jax) and hands the arrays over.
+imports jax or the JAX package) and hands the arrays over.  Like every
+entry point of the port, each function puts its tensors on the card unless
+``device=`` says otherwise.
+
+    cfg = config_from_jax(jax_saq.cfg)                      # port SAQConfig
 
     params = pq_params_from_numpy(np.asarray(jax_pq.params.codebooks), "cuda")
     index = flat_index_from_numpy(codebooks, codes, norms, num_rows,
@@ -10,20 +14,45 @@ imports jax) and hands the arrays over.
     saq = saq_from_numpy(jax_saq.plan, jax.tree_util.tree_map(np.asarray,
                          jax_saq.params), jax_saq.cfg)
     packed = packed_corpus_from_numpy(words, factors, ...)   # (N, F) factors
+    index = ivf_packed_index_from_numpy(saq, np.asarray(jax_index.centroids), ...)
 """
 
 from __future__ import annotations
 
+import dataclasses
+import enum
+
 import numpy as np
 import torch
 
-from vq_tpu.core.config import PQConfig, RaBitQConfig, SAQConfig, SearchConfig
+from vq_tpu_torch.core import config as _config
+from vq_tpu_torch.core.config import PQConfig, RaBitQConfig, SAQConfig, SearchConfig
 from vq_tpu_torch._device import resolve_device
 from vq_tpu_torch.index.flat import FlatQuantizedIndex
+from vq_tpu_torch.index.ivf_packed import IvfPackedFlatIndex
 from vq_tpu_torch.kernels.packed_scan import PackedCorpus
 from vq_tpu_torch.methods.pq import PQ, PQParams
 from vq_tpu_torch.methods.rabitq import RaBitQ, RaBitQParams
 from vq_tpu_torch.methods.saq import SAQ, SAQParams, SAQPlan
+
+
+def config_from_jax(cfg):
+    """A JAX config object (any dataclass of ``vq_tpu/core/config.py``) →
+    the port's config of the same class name, field by field; nested
+    configs (``kmeans``) and ``Metric`` values convert too.  Reads only the
+    object's dataclass fields and class name."""
+    cls = getattr(_config, type(cfg).__name__, None)
+    if cls is None or not dataclasses.is_dataclass(cls):
+        raise TypeError(f"no port config named {type(cfg).__name__}")
+
+    def _conv(v):
+        if dataclasses.is_dataclass(v) and not isinstance(v, type):
+            return config_from_jax(v)
+        if isinstance(v, enum.Enum):
+            return _config.Metric(v.value)
+        return v
+
+    return cls(**{f.name: _conv(getattr(cfg, f.name)) for f in dataclasses.fields(cfg)})
 
 
 def _tensor(a, device, dtype=np.float32) -> torch.Tensor:
@@ -118,3 +147,28 @@ def packed_corpus_from_numpy(words, factors: np.ndarray, num_rows: int, tile_sta
         tile_stats=None if tile_stats is None else _tensor(tile_stats, dev),
         has_norms=has_norms, perm=None if perm is None else _tensor(perm, dev, np.int32),
         prune_hint=prune_hint)
+
+
+def ivf_packed_index_from_numpy(quantizer, centroids: np.ndarray, ids_sorted: np.ndarray,
+                                cl_first: np.ndarray, cl_last: np.ndarray, words,
+                                factors: np.ndarray, num_rows: int, tile_stats=None,
+                                has_norms: bool = False, prune_hint: bool = False,
+                                ivf_cfg=None, search_cfg=None) -> IvfPackedFlatIndex:
+    """The state of a JAX ``IvfPackedFlatIndex`` (``vq_tpu/index/ivf_packed.py``)
+    → a port index over the fitted port ``quantizer`` (``saq_from_numpy``,
+    ``rabitq_from_numpy``), on the quantizer's device: the centroids, the
+    row order, the per-tile cluster ranges and the order-preserving cache
+    (words as they are, factors transposed to (F, N)); the configs through
+    ``config_from_jax``.  Both packages then search the same cache."""
+    dev = quantizer.device
+    index = IvfPackedFlatIndex(quantizer, config_from_jax(ivf_cfg or _config.IVFConfig()),
+                               config_from_jax(search_cfg or SearchConfig()))
+    index.centroids = _tensor(centroids, dev)
+    index.ids_sorted = _tensor(ids_sorted, dev, np.int32)
+    index.cl_first = _tensor(cl_first, dev, np.int32)
+    index.cl_last = _tensor(cl_last, dev, np.int32)
+    index.num_rows = int(num_rows)
+    index.cache = packed_corpus_from_numpy(words, factors, num_rows, tile_stats,
+                                           has_norms=has_norms, prune_hint=prune_hint,
+                                           device=dev)
+    return index

@@ -2,9 +2,9 @@
 //
 // Replaces vq_tpu/kernels/pallas_packed.py::packed_scan_topk, dense grid
 // and prune=True (_packed_kernel with _unpack_words, _dequant_seg, the
-// variance-prune bound and the running top-k folds)
+// variance-prune bound and the running top-k folds), and its tile-gather
+// mode (tile_mask / mask_cap, _packed_kernel_gather)
 //   -> vq_packed_scan_topk = packed_scan_kernel + merge_kernel (topk.cuh).
-// Its tile-gather mode (tile_mask, _packed_kernel_gather) is not ported yet.
 //
 // What it computes (the TPU kernel's contract).  The corpus is S segments
 // of B_s-bit per-dimension codes, packed as "tile-ordered bitplane words":
@@ -45,10 +45,24 @@
 // (published FP32 rate); tensor cores (mma.sync / wgmma on bf16 tiles) are
 // the later fix.
 //
+// Gather mode (tiles != nullptr): the caller compacts the tile mask on the
+// card into an ascending list of masked-in tile ids and their count `cnt`,
+// both in device memory (no host sync).  Block (query block, y) walks list
+// entries [y*c, (y+1)*c), c = ceil(cnt/chunks) read from device memory: the
+// LIST is split, not the grid, so at 5% of tiles masked in the work still
+// spreads over the blocks, masked-out tiles cost neither memory traffic nor
+// compute, and a full list splits exactly as the dense grid does.
+// Row offsets, the tile-stats lookup, the `limit` mask and the ids written
+// into the top-k all use the global tile id list[i]; the list is ascending,
+// so rows still reach a block's running top-k in id order.  Composes with
+// prune (a tile scans when it is masked in and its bound survives); with
+// cnt = 0 every block writes empty candidates and the merge launch still
+// writes the (-inf, id 0) result.
+//
 // Design.  A block owns kQB = 32 queries x a chunk of whole 512-row tiles
 // (a prune tile is never split).  It walks its tiles in order (tile = chunk
-// start + i; a list of tile ids can replace that for the gather mode) and
-// each tile in kTR = 128-row register tiles.  For each 32-dimension stage it
+// start + i, or list[i] in the gather mode) and each tile in kTR = 128-row
+// register tiles.  For each 32-dimension stage it
 // unpacks and dequantizes the 128 x 32 value tile ONCE into shared memory
 // (lanes on consecutive dimensions: the word loads are coalesced) and
 // stages the 32 x 32 query tile; each thread then accumulates a 4-query x
@@ -104,7 +118,9 @@ struct Params {
   int* cand_i;
   int* scanned;         // (query block, tile) pairs scanned
   unsigned int* kth_g;  // (Q,) published k-th scores (ordered ints), prune only
-  int Q, D, N, k, limit, metric, family, norm_col, bf16, prune, nb, tiles_per_chunk;
+  const int* tiles;     // gather mode: (nb,) ascending masked-in tile ids; else null
+  const int* cnt;       // gather mode: (1,) number of valid entries of `tiles`
+  int Q, D, N, k, limit, metric, family, norm_col, bf16, prune, nb;
   int nseg, n_r2, lv_smem;
   int r2[kMaxSegs];
   Seg seg[kMaxSegs];
@@ -241,8 +257,12 @@ packed_scan_kernel(const __grid_constant__ Params p) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int q0 = blockIdx.x * kQB;
   const int nq = min(kQB, p.Q - q0);
-  const int t_begin = blockIdx.y * p.tiles_per_chunk;
-  const int t_end = min(p.nb, t_begin + p.tiles_per_chunk);
+  // this block's range of tiles (dense) or of list entries (gather): chunks
+  // of ceil(count / chunks), so a full list splits as the dense grid does
+  const int count = p.tiles != nullptr ? p.cnt[0] : p.nb;
+  const int per = (count + (int)gridDim.y - 1) / (int)gridDim.y;
+  const int i_begin = min(count, (int)blockIdx.y * per);
+  const int i_end = min(count, i_begin + per);
 
   for (int i = tid; i < kQB * kBuf; i += kThreads) {
     buf_s[i] = -INFINITY;
@@ -263,7 +283,8 @@ packed_scan_kernel(const __grid_constant__ Params p) {
   }
   __syncthreads();
 
-  for (int t = t_begin; t < t_end; ++t) {
+  for (int i = i_begin; i < i_end; ++i) {
+    const int t = p.tiles != nullptr ? p.tiles[i] : i;  // global tile id
     if (p.prune) {
       bool keep = false;
       if (tid < nq) {
@@ -375,25 +396,28 @@ int vq_ordered_neg_inf() { return (int)~0xff800000u; }  // ordered bits of -inf
 // ln, kind, scale_col, unused); r2: the L2 shift factor columns.
 // q (Q, D), qa (Q,), fac (F, N), stats (N/512, 5), qprune (Q, 2) f32
 //   -> cand (Q, chunks, k) -> out (Q, k); scanned (1,) i32, zeroed by the
-// caller; kth_g (Q,) u32 set by the caller to vq_ordered_neg_inf() (prune only)
+// caller; kth_g (Q,) u32 set by the caller to vq_ordered_neg_inf() (prune only);
+// tiles (N/512,) i32 ascending masked-in tile ids and cnt (1,) i32 their
+// count, both on the card, select the gather mode (null: the dense grid)
 int vq_packed_scan_topk(const float* q, const float* qa, const float* fac, const float* stats,
                         const float* qprune, const long long* segs, int nseg, const int* r2,
                         int n_r2, float* cand_s, int* cand_i, float* out_s, int* out_i,
-                        int* scanned, unsigned int* kth_g, int Q, int D, int N, int k,
+                        int* scanned, unsigned int* kth_g, const int* tiles, const int* cnt,
+                        int Q, int D, int N, int k,
                         int limit, int metric,
                         int family, int norm_col, int prune, int bf16, int chunks,
                         void* stream) {
   if (k < 1 || k > kMaxK || k + kTR > kBuf || chunks < 1 || chunks * k > kMergeCap ||
       nseg < 1 || nseg > kMaxSegs || n_r2 > kMaxSegs || N % kTile != 0 ||
-      (metric == kL2 && n_r2 < 1))
+      (metric == kL2 && n_r2 < 1) || ((tiles == nullptr) != (cnt == nullptr)))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q; p.qa = qa; p.fac = fac; p.stats = stats; p.qprune = qprune;
   p.cand_s = cand_s; p.cand_i = cand_i; p.scanned = scanned; p.kth_g = kth_g;
+  p.tiles = tiles; p.cnt = cnt;
   p.Q = Q; p.D = D; p.N = N; p.k = k; p.limit = limit; p.metric = metric;
   p.family = family; p.norm_col = norm_col; p.bf16 = bf16; p.prune = prune;
   p.nb = N / kTile;
-  p.tiles_per_chunk = (p.nb + chunks - 1) / chunks;
   p.nseg = nseg; p.n_r2 = n_r2;
   for (int i = 0; i < n_r2; ++i) p.r2[i] = r2[i];
   int d = 0, lv_floats = 0;

@@ -15,7 +15,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from vq_tpu.core.config import SearchConfig
+from vq_tpu_torch.core.config import SearchConfig
 from vq_tpu_torch._device import as_f32
 from vq_tpu_torch.index.base import BaseSearchIndex, nbytes_of
 from vq_tpu_torch.methods.base import BaseQuantizer, tree_leaves

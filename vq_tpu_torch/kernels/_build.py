@@ -106,7 +106,7 @@ _SIGNATURES = {
     "vq_packed_max_segments": [],
     "vq_ordered_neg_inf": [],
     "vq_packed_scan_topk": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                            _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -25,7 +25,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from vq_tpu.core.config import Metric
+from vq_tpu_torch.core.config import Metric
 from vq_tpu_torch._device import as_f32, bf16_supported, round_bf16
 from vq_tpu_torch.kernels.pq_scan import (  # noqa: F401  (decode_pq: public here too)
     decode_pq,

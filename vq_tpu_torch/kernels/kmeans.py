@@ -18,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from vq_tpu.core.config import KMeansConfig
+from vq_tpu_torch.core.config import KMeansConfig
 from vq_tpu_torch._device import make_generator
 
 _TILE_ELEMS = 1 << 27  # (rows × k × batch) above this, Lloyd tiles over rows

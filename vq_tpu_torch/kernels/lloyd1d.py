@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from vq_tpu_torch._device import make_generator
+from vq_tpu_torch._device import make_generator, resolve_device
 
 
 def _lloyd_sorted_batched(s: torch.Tensor, num_levels: int, iters: int) -> torch.Tensor:
@@ -54,8 +54,9 @@ def lloyd_1d(samples: torch.Tensor, num_levels: int, iters: int = 60) -> torch.T
 def lloyd_1d_normal(num_levels: int, seed: int = 0, n_samples: int = 200_000,
                     iters: int = 100, device=None) -> torch.Tensor:
     """Gaussian-optimal scalar codebook: Lloyd on a seeded N(0,1) sample
-    drawn from a ``torch.Generator`` (so its sample differs from JAX's)."""
-    dev = torch.device("cpu" if device is None else device)
+    drawn from a ``torch.Generator`` (so its sample differs from JAX's), on
+    ``device`` (default: the card)."""
+    dev = resolve_device(device)
     g = make_generator(seed, dev)
     samples = torch.randn((n_samples,), generator=g, device=dev)
     return lloyd_1d(samples, num_levels, iters)

@@ -27,11 +27,20 @@ is scanned when any query's bound reaches that query's running k-th score
 over all earlier tiles), the kernel counts (query block, tile) pairs,
 because its blocks run in parallel over chunks of tiles, each with its own
 running top-k and the k-th scores the other blocks have published so far
-(``prune_units`` gives the total of either).  ``tile_mask`` /
-``mask_cap`` (the IVF gather mode) raise ``NotImplementedError``: that
-kernel is not ported yet.
+(``prune_units`` gives the total of either).
 
-``packed_scan_topk.launches`` counts kernel launches.
+Gather mode (``tile_mask``, the IVF probed-tile path): only tiles whose
+mask entry is non-zero are scanned, in ascending tile order, so the result
+equals a scan of the masked-in rows alone.  On the card the wrapper
+compacts the mask into an ascending tile-id list and its count with torch
+ops that stay on the card (no host sync), and the kernel's blocks split
+that list.  With prune, a tile counts when it is masked in and its bound
+survives.  ``mask_cap`` (the TPU kernel's static short-grid cap) is taken
+for API parity and never changes a result; the card's grid splits the
+device-side count, so it sizes nothing there.
+
+``packed_scan_topk.launches`` counts launches of the dense kernel,
+``packed_scan_topk.gather_launches`` those of the gather mode.
 """
 
 from __future__ import annotations
@@ -212,6 +221,17 @@ def _score_rows(q, qa, words, factors, lv_tables, segs, r0, r1, metric_kind, nor
     return torch.where(col[None, :] < limit, s, torch.full_like(s, -math.inf))
 
 
+def _tile_runs(tiles: Sequence[int]):
+    """Ascending tile ids → [(first, last + 1)] runs of consecutive tiles."""
+    runs = []
+    for t in tiles:
+        if runs and runs[-1][1] == t:
+            runs[-1][1] = t + 1
+        else:
+            runs.append([t, t + 1])
+    return runs
+
+
 def _fold(best, s, r0, k):
     ids = torch.arange(r0, r0 + s.shape[1], device=s.device)
     if best is not None:
@@ -224,12 +244,16 @@ def packed_scan_topk_plain(q_cat, qa, words, factors, lv_tables, segs, k: int,
                            family: str = "seg", metric_kind: str = "l2",
                            norm_col: int = -1, r2_cols: Sequence[int] = (),
                            limit: Optional[int] = None, use_bf16: bool = True,
-                           prune: bool = False, tile_stats=None, qprune=None):
+                           prune: bool = False, tile_stats=None, qprune=None,
+                           tile_mask=None, mask_cap=None):
     """Plain PyTorch version of ``packed_scan_topk`` (same arguments and
     results).  Dense: the corpus in blocks of whole tiles, each block's
     top-k folded into a running one.  Prune: tile by tile in order, a tile
     scanned when any query's bound reaches its running k-th score (JAX's
-    sequence), and the count of tiles scanned returned third."""
+    sequence), and the count of tiles scanned returned third.  With
+    ``tile_mask`` only the masked-in tiles, in ascending order, take part
+    (in the prune sequence too); ``mask_cap`` is ignored."""
+    del mask_cap  # a TPU grid-length cap: never changes the result
     n = factors.shape[1]
     num_q = q_cat.shape[0]
     lim = n if limit is None else int(limit)
@@ -238,8 +262,11 @@ def packed_scan_topk_plain(q_cat, qa, words, factors, lv_tables, segs, k: int,
     qa = qa.to(torch.float32)
     args = (q, qa, words, factors, lv_tables, segs)
     best, scanned = None, 0
+    tiles = list(range(n // TILE))
+    if tile_mask is not None:
+        tiles = torch.nonzero(tile_mask.reshape(-1) != 0).reshape(-1).tolist()
     if prune:
-        for t in range(n // TILE):
+        for t in tiles:
             kth = (best[0][:, k - 1] if best is not None and best[0].shape[1] >= k
                    else torch.full((num_q,), -math.inf, device=q.device))
             if not bool((_tile_bound(tile_stats[t], qprune, family, metric_kind) >= kth).any()):
@@ -250,10 +277,11 @@ def packed_scan_topk_plain(q_cat, qa, words, factors, lv_tables, segs, k: int,
             best = _fold(best, s, t * TILE, k)
     else:
         step = max(TILE, _PLAIN_ELEMS // max(num_q, 1) // TILE * TILE)
-        for r0 in range(0, n, step):
-            r1 = min(n, r0 + step)
-            s = _score_rows(*args, r0, r1, metric_kind, norm_col, r2_cols, lim, use_bf16)
-            best = _fold(best, s, r0, k)
+        for t0, t1 in _tile_runs(tiles):
+            for r0 in range(t0 * TILE, t1 * TILE, step):
+                r1 = min(t1 * TILE, r0 + step)
+                s = _score_rows(*args, r0, r1, metric_kind, norm_col, r2_cols, lim, use_bf16)
+                best = _fold(best, s, r0, k)
     if best is None or best[0].shape[1] < k:  # nothing scanned / fewer rows than k
         have = 0 if best is None else best[0].shape[1]
         pad_s = torch.full((num_q, k - have), -math.inf, device=q.device)
@@ -268,10 +296,11 @@ def packed_scan_topk_plain(q_cat, qa, words, factors, lv_tables, segs, k: int,
 
 
 # ------------------------------------------------------------------- wrapper
-def prune_units(num_q: int, n_pad: int, device) -> int:
+def prune_units(num_q: int, n_pad: int, device, tiles: Optional[int] = None) -> int:
     """The total the prune count is a part of: tiles (plain twin), or
-    (query block, tile) pairs (the CUDA kernel)."""
-    nb = n_pad // TILE
+    (query block, tile) pairs (the CUDA kernel); ``tiles`` = the masked-in
+    count of a gather-mode scan (default: every tile)."""
+    nb = n_pad // TILE if tiles is None else int(tiles)
     if torch.device(device).type != "cuda":
         return nb
     from vq_tpu_torch.kernels._build import load_library
@@ -288,7 +317,7 @@ def _check(name, t, dev, dtype, shape):
 
 
 def _check_inputs(q_cat, qa, words, factors, lv_tables, segs, k, metric_kind, family,
-                  norm_col, r2_cols, prune, tile_stats, qprune):
+                  norm_col, r2_cols, prune, tile_stats, qprune, tile_mask=None):
     dev = factors.device
     num_q, d = q_cat.shape
     nf, n = factors.shape
@@ -330,6 +359,10 @@ def _check_inputs(q_cat, qa, words, factors, lv_tables, segs, k, metric_kind, fa
             raise ValueError("prune=True needs tile_stats and qprune")
         _check("tile_stats", tile_stats, dev, torch.float32, (n // TILE, 5))
         _check("qprune", qprune, dev, torch.float32, (num_q, 2))
+    if tile_mask is not None:
+        if tuple(tile_mask.shape) != (n // TILE,) or tile_mask.is_floating_point():
+            raise ValueError(f"tile_mask must be an integer or bool tensor of shape "
+                             f"({n // TILE},), got {tile_mask.dtype} {tuple(tile_mask.shape)}")
 
 
 def _chunks(device, num_q: int, qb: int, nb: int, k: int) -> int:
@@ -346,6 +379,16 @@ def _chunks(device, num_q: int, qb: int, nb: int, k: int) -> int:
     if qblocks * chunks > slots:
         chunks = max(1, qblocks * chunks // slots * slots // qblocks)
     return chunks
+
+
+def compact_tile_mask(tile_mask: torch.Tensor):
+    """(nb,) mask → ((nb,) i32 tile ids, masked-in ones first in ascending
+    order; (1,) i32 their count), by a stable sort on the mask's device --
+    JAX's ``argsort(~mask)`` -- with no host sync."""
+    m = tile_mask != 0
+    cnt = m.sum(dtype=torch.int32).reshape(1)
+    ids = torch.sort((~m).to(torch.uint8), stable=True).indices.to(torch.int32)
+    return ids, cnt
 
 
 def packed_scan_topk(q_cat, qa, words, factors, lv_tables, segs, k: int,
@@ -367,22 +410,23 @@ def packed_scan_topk(q_cat, qa, words, factors, lv_tables, segs, k: int,
     family  "seg" | "rabitq": the prune bound's shape
     prune   skip tiles whose score bound (tile_stats (N/512, 5), qprune
             (Q, 2) = per-query (A, B)) is below every query's running k-th
+    tile_mask (N/512,) integer or bool: scan only the tiles with a non-zero
+            entry (the gather mode); mask_cap is accepted and ignored
     """
-    if tile_mask is not None or mask_cap is not None:
-        raise NotImplementedError("packed_scan_topk: the tile-gather mode (tile_mask, "
-                                  "mask_cap) is not ported yet")
     r2_cols = tuple(int(c) for c in r2_cols)
     dev = factors.device
+    if tile_mask is not None and tile_mask.device != dev:
+        raise ValueError(f"tile_mask on {tile_mask.device}, factors on {dev}")
     if dev.type == "cpu":
         return packed_scan_topk_plain(q_cat, qa, words, factors, lv_tables, segs, k, family,
                                       metric_kind, norm_col, r2_cols, limit, use_bf16, prune,
-                                      tile_stats, qprune)
+                                      tile_stats, qprune, tile_mask, mask_cap)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     from vq_tpu_torch.kernels._build import check, load_library
 
     _check_inputs(q_cat, qa, words, factors, lv_tables, segs, k, metric_kind, family,
-                  norm_col, r2_cols, prune, tile_stats, qprune)
+                  norm_col, r2_cols, prune, tile_stats, qprune, tile_mask)
     lib = load_library()
     if len(segs) > lib.vq_packed_max_segments():
         raise ValueError(f"{len(segs)} segments > {lib.vq_packed_max_segments()}")
@@ -410,22 +454,31 @@ def packed_scan_topk(q_cat, qa, words, factors, lv_tables, segs, k: int,
              if prune else scanned)
     stats_ptr = tile_stats.data_ptr() if prune else 0
     qprune_ptr = qprune.data_ptr() if prune else 0
+    tiles_ptr = cnt_ptr = 0
+    if tile_mask is not None:
+        tile_ids, cnt = compact_tile_mask(tile_mask)
+        tiles_ptr, cnt_ptr = tile_ids.data_ptr(), cnt.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
     check(lib.vq_packed_scan_topk(
         q_cat.data_ptr(), qa.data_ptr(), factors.data_ptr(), stats_ptr, qprune_ptr,
         desc.ctypes.data, len(segs), r2.ctypes.data, len(r2_cols), cand_s.data_ptr(),
         cand_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), scanned.data_ptr(),
-        kth_g.data_ptr(), num_q,
+        kth_g.data_ptr(), tiles_ptr, cnt_ptr, num_q,
         q_cat.shape[1], n, k, lim, _METRICS[metric_kind], _FAMILIES[family], norm_col,
         int(prune), int(use_bf16), chunks, stream), "vq_packed_scan_topk")
-    packed_scan_topk.launches += 1
+    if tile_mask is None:
+        packed_scan_topk.launches += 1
+    else:
+        packed_scan_topk.gather_launches += 1
     if prune:
         return out_s, out_i, scanned[0]
     return out_s, out_i
 
 
 packed_scan_topk.launches = 0
+packed_scan_topk.gather_launches = 0
 
 
 def reset_launch_counts() -> None:
     packed_scan_topk.launches = 0
+    packed_scan_topk.gather_launches = 0

@@ -6,8 +6,9 @@ tensors (``fit → params``, ``encode(params, X) → codes``,
 of tuples of tensors (SAQ's per-segment rotations), on the quantizer's
 ``device``.  ``compress``/``decompress`` return tensors on
 that device.  A quantizer built without a device takes the device of the
-tensor it is fitted on (the CPU for numpy input); a tensor on a card is
-never copied to another device (``_device.to_device`` raises).
+tensor it is fitted on, and the card for numpy input (``device="cpu"``
+asks for the CPU); a tensor on a card is never copied to another device
+(``_device.to_device`` raises).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from vq_tpu_torch._device import as_f32, resolve_device
+from vq_tpu_torch._device import as_f32, device_of, resolve_device
 
 
 def tree_map(fn, tree):
@@ -52,9 +53,10 @@ class BaseQuantizer:
         self.device = None if device is None else resolve_device(device)
 
     def _bind_device(self, X) -> torch.device:
-        """Fix the device at fit time when none was given: X's, or the CPU."""
+        """Fix the device at fit time when none was given: a tensor's own,
+        else the card (``_device.device_of``)."""
         if self.device is None:
-            self.device = X.device if isinstance(X, torch.Tensor) else torch.device("cpu")
+            self.device = device_of(X)
         return self.device
 
     # -- to implement ------------------------------------------------------
@@ -76,6 +78,12 @@ class BaseQuantizer:
         the generic decode→score→top-k scan (``kernels/adc.py``)."""
         raise NotImplementedError
 
+    def encode_fn(self):
+        """Optionally return an ``x_tile (T, D) → codes`` encoder for chunked
+        index builds (``index/ivf.py::encode_rows_ordered``); None means
+        ``compress``."""
+        return None
+
     # -- provided ----------------------------------------------------------
     def scan_topk(self, queries, codes, k: int, metric, norms=None,
                   tile_rows: int = 16384, use_bf16: bool = True, cache=None,
@@ -92,10 +100,21 @@ class BaseQuantizer:
         None means "scan the stored rows directly"."""
         return None
 
+    def prepare_tile_cache(self, codes, norms=None, num_queries=8):
+        """An ORDER-PRESERVING packed scan layout (``perm is None``: rows stay
+        in the caller's order) for tile-masked scans: the probed-tile IVF
+        index (``index/ivf_packed.py``) keeps rows sorted by coarse cluster,
+        so each 512-row tile spans a contiguous cluster range, and scans
+        only the probed tiles through ``packed_scan_raw(tile_mask=...)``.
+        None: this method has no packed layout."""
+        return None
+
     def packed_scan_raw(self, queries, packed, k, metric, num_valid=None, use_bf16=True,
                         tile_mask=None, mask_cap=None):
         """Maximize-form (scores, scan-position ids) of the packed kernel over
-        a ``prepare_scan`` layout; only methods with a packed layout have one."""
+        a ``prepare_scan`` / ``prepare_tile_cache`` layout, restricted to the
+        tiles of ``tile_mask`` when given; only methods with a packed layout
+        have one."""
         raise NotImplementedError(f"{self.name} has no packed scan layout")
 
     @property
@@ -124,7 +143,7 @@ class BaseQuantizer:
     def _restore_payload(self, payload: Dict[str, Any]) -> None:
         self._dim = payload["dim"]
         if self.device is None:
-            self.device = torch.device("cpu")
+            self.device = resolve_device(None)
         self.params = tree_map(lambda a: torch.as_tensor(a, device=self.device),
                                payload["params"])
 

@@ -14,8 +14,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from vq_tpu.core.config import PQConfig
-from vq_tpu_torch._device import as_f32, make_generator, resolve_device, to_device
+from vq_tpu_torch.core.config import PQConfig
+from vq_tpu_torch._device import as_f32, device_of, make_generator, to_device
 from vq_tpu_torch.data.sampling import host_sample_rows
 from vq_tpu_torch.kernels.adc import decode_pq, scan_codes_topk
 from vq_tpu_torch.kernels.kmeans import kmeans_batched
@@ -38,10 +38,8 @@ def _to_subspaces(x: torch.Tensor, m: int) -> torch.Tensor:
 
 def fit(x, cfg: PQConfig, seed: int = 0, device=None) -> PQParams:
     """Train codebooks on ≤ max_points_per_centroid·K rows of x, sampled
-    before anything moves to ``device`` (default: x's device, or cpu)."""
-    if device is None:
-        device = x.device if isinstance(x, torch.Tensor) else "cpu"
-    device = resolve_device(device)
+    before anything moves to ``device`` (default: x's device, or the card for host data)."""
+    device = device_of(x, device)
     cap = cfg.kmeans.max_points_per_centroid * cfg.codebook_size
     xs = as_f32(host_sample_rows(x, cap, seed), device)
     codebooks = kmeans_batched(make_generator(seed, device),

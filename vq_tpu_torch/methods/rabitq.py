@@ -23,8 +23,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from vq_tpu.core.config import Metric, RaBitQConfig
-from vq_tpu_torch._device import as_f32, bf16_supported, round_bf16, to_device
+from vq_tpu_torch.core.config import Metric, RaBitQConfig
+from vq_tpu_torch._device import as_f32, bf16_supported, device_of, round_bf16, to_device
 from vq_tpu_torch.core.packing import (
     bytes_to_f32,
     f32_to_bytes,
@@ -55,9 +55,8 @@ class RaBitQParams(NamedTuple):
 
 def fit(x, cfg: RaBitQConfig, device=None) -> RaBitQParams:
     """Centroid of x, the seeded rotation and the Gaussian level table, on
-    ``device`` (default: x's device, or the CPU)."""
-    if device is None:
-        device = x.device if isinstance(x, torch.Tensor) else torch.device("cpu")
+    ``device`` (default: x's device, or the card for host data)."""
+    device = device_of(x, device)
     d = x.shape[1]
     centroid = torch.mean(as_f32(x, device), dim=0)
     q, _ = np.linalg.qr(np.random.default_rng(cfg.seed).standard_normal((d, d)))
@@ -317,6 +316,11 @@ class RaBitQ(BaseQuantizer):
     def prepare_scan(self, codes, norms=None, num_queries=8):
         """The PackedCorpus scan cache (unsorted), built once at index fit."""
         return prepare_packed(self.params, codes, self.cfg.num_bits, norms=norms)
+
+    def prepare_tile_cache(self, codes, norms=None, num_queries=8):
+        """The order-preserving layout (base contract): the scan layout is
+        already unsorted."""
+        return self.prepare_scan(codes, norms=norms, num_queries=num_queries)
 
     def packed_scan_raw(self, queries, packed, k, metric, num_valid=None, use_bf16=True,
                         tile_mask=None, mask_cap=None):

@@ -3,7 +3,7 @@
 
   fit:    (optional) PCA → per-dim variance → empirical per-block MSE table
           of the uniform CAQ encoder → greedy or DP bit allocation over
-          64-dim blocks (the native allocators of ``vq_tpu.native`` first)
+          64-dim blocks (the port's native allocators first, ``native/``)
           → equal-bit blocks merged into segments → per-segment seeded
           random rotations (numpy QR, so they equal the JAX package's).
   encode: per segment: slice + rotate + CAQ encode + bit-pack; row layout
@@ -15,8 +15,8 @@
           ``use_packed=False`` or k > 128 takes the plain streaming scan.
 
 Not ported yet: the head-segment prune cascade (``prune_segments > 0``
-raises; it lost every measurement on the TPU and stays off), and the IVF /
-sharded caches (``prepare_tile_cache``, ``residual_scorer``,
+raises; it lost every measurement on the TPU and stays off), the IVF list
+scorer and the sharded cache (``residual_scorer``,
 ``prepare_shard_cache``).
 """
 
@@ -28,8 +28,9 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from vq_tpu.core.config import Metric, SAQConfig
-from vq_tpu_torch._device import as_f32, bf16_supported, round_bf16, to_device
+from vq_tpu_torch.core.config import Metric, SAQConfig
+from vq_tpu_torch import native
+from vq_tpu_torch._device import as_f32, bf16_supported, device_of, round_bf16, to_device
 from vq_tpu_torch.core.packing import (
     bytes_to_f32,
     f32_to_bytes,
@@ -210,15 +211,11 @@ def make_plan(variances: np.ndarray, mse_table: np.ndarray, cfg: SAQConfig) -> S
         b = max(1, min(cfg.max_bits, int(round(cfg.bits_per_dim))))
         bits = np.full(nb, b, dtype=np.int64)
     elif cfg.allocator == "dp":
-        from vq_tpu.native import allocate_dp_native
-
-        bits = allocate_dp_native(block_mse, block_lens, total_budget, cfg.max_bits)
+        bits = native.allocate_dp_native(block_mse, block_lens, total_budget, cfg.max_bits)
         if bits is None:
             bits = _allocate_dp(block_mse, block_lens, total_budget, cfg.max_bits)
     else:
-        from vq_tpu.native import allocate_greedy_native
-
-        bits = allocate_greedy_native(block_mse, block_lens, total_budget, cfg.max_bits)
+        bits = native.allocate_greedy_native(block_mse, block_lens, total_budget, cfg.max_bits)
         if bits is None:
             bits = _allocate_greedy(block_mse, block_lens, total_budget, cfg.max_bits)
 
@@ -244,14 +241,13 @@ def make_plan(variances: np.ndarray, mse_table: np.ndarray, cfg: SAQConfig) -> S
 
 
 def _codebook_exact(col: np.ndarray, num_levels: int, sample_cap: int, seed: int) -> np.ndarray:
-    """Optimal 1-D levels by the native DP (``vq_tpu.native``); without the
-    native library, the port's own Lloyd on the same sorted sample (the JAX
-    package's fallback, never reached here)."""
-    from vq_tpu import native
-
+    """Optimal 1-D levels by the port's native DP (``native/``); without the
+    native library, the port's own Lloyd on the same sorted sample."""
     x = np.asarray(col, dtype=np.float32).ravel()
-    if native.available() and len(x) > 0:
-        return native.codebook_exact(x, num_levels, sample_cap=sample_cap, seed=seed)
+    levels = native.codebook_exact(x, num_levels, sample_cap=sample_cap, seed=seed) \
+        if len(x) > 0 else None
+    if levels is not None:
+        return levels
     if len(x) > sample_cap:
         x = np.random.default_rng(seed).choice(x, sample_cap, replace=False)
     return lloyd_1d_sorted(torch.from_numpy(np.sort(x)), num_levels, iters=100).numpy()
@@ -259,9 +255,8 @@ def _codebook_exact(col: np.ndarray, num_levels: int, sample_cap: int, seed: int
 
 def fit(x, cfg: SAQConfig, sample_cap: int = 200_000, device=None) -> Tuple[SAQPlan, SAQParams]:
     """Plan and params from ≤ sample_cap rows of x, sampled before anything
-    moves to ``device`` (default: x's device, or the CPU)."""
-    if device is None:
-        device = x.device if isinstance(x, torch.Tensor) else torch.device("cpu")
+    moves to ``device`` (default: x's device, or the card for host data)."""
+    device = device_of(x, device)
     xs = as_f32(host_sample_rows(x, sample_cap, cfg.seed), device)
     d = xs.shape[1]
     if cfg.use_pca:
@@ -695,6 +690,11 @@ class SAQ(BaseQuantizer):
         fit), so the variance prune can fire.  ``num_queries`` sized the
         TPU's VMEM gate; the card's kernel takes any batch."""
         return prepare_packed(self.plan, self.params, codes, norms=norms, sort_rows=True)
+
+    def prepare_tile_cache(self, codes, norms=None, num_queries=8):
+        """The order-preserving layout (base contract): no norm-ordering, no
+        perm; tile stats and the prune hint as for ``prepare_scan``."""
+        return prepare_packed(self.plan, self.params, codes, norms=norms, sort_rows=False)
 
     def packed_scan_raw(self, queries, packed, k, metric, num_valid=None, use_bf16=True,
                         tile_mask=None, mask_cap=None):
