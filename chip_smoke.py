@@ -8,7 +8,8 @@ Phases (any failure exits non-zero; nothing is caught):
 1. Device: the card's name and power limit (nvidia-smi), CUDA required,
    TF32 off.
 2. Build the CUDA kernels of ``vq_tpu_torch/csrc`` from the checkout (one
-   nvcc per source, in parallel).
+   nvcc per source, in parallel); the ptxas report; the HMMA (tensor-core)
+   instructions in the packed kernel's SASS, which bf16 mode must have.
 3. The PQ kernels against their plain PyTorch versions on the card: edge
    cases at small shapes, then the PQ main path's shapes (Q=1024, D=1536,
    N=100,000, M=16 / K=256 and M=192 / dsub=8), f32 mode on scores and ids,
@@ -29,7 +30,10 @@ Phases (any failure exits non-zero; nothing is caught):
    RaBitQ B=2 (shared table) and B=6 (value plane), each in L2 / IP / NIP
    at k=10 and k=100, f32 ids and scores, bf16 recall, prune ids = dense
    ids; every dequant kind must launch; edge cases (limit < k, limit
-   masking, N < 512, k = 1 and 128, planted ties); kernel and plain times.
+   masking, N < 512, k = 1 and 128, planted ties), and in bf16 Q = 1, 7
+   and 65, N < 512, k = 1 and 128 and segment lengths that are not
+   multiples of 16 against the plain bf16 version; kernel and plain times
+   in bf16 (tensor cores) and f32 (FFMA), each beside its bound.
 7. The SAQ path (``bench.py:248-380`` on the port): FlatQuantizedIndex(SAQ
    bpd=2, PCA) fit, encode and norm-ordered pack, ground truth, search at
    k=10 and k=100 on the power-law corpus (σ_i = (1+i)^-0.6, N=1,048,576,
@@ -44,7 +48,8 @@ Phases (any failure exits non-zero; nothing is caught):
    contiguous runs, one tile, only the last (partial) tile, no tile; L2 /
    IP / NIP at k=10 and 100, f32 ids and scores, bf16 recall, prune ids =
    unpruned ids, every tile = the dense kernel bit for bit, no tile = -inf
-   with id 0, the same result at three ``mask_cap`` values.  Its time table
+   with id 0, the same result at three ``mask_cap`` values; kernel and
+   plain times in bf16 and f32 at the 25% and every-tile masks.  Its time table
    (dense vs gather at 100/25/5/1% of tiles, N=1,048,576, k=100) runs on
    phase 7's SAQ codes.
 10. The probed-tile IVF path (``bench.py:478-651`` on the port, SAQ bpd=2):
@@ -556,9 +561,79 @@ def packed_configs(torch, x, q, norms, tile_cache=False):
     return out
 
 
+def time_packed(torch, a, what):
+    """The packed call ``a`` timed in bf16 (tensor cores) and f32 (FFMA):
+    kernel and plain CUDA-event ms (median of 5), each beside its bound.
+    Returns the bf16 (kernel ms, plain ms, bound) and a line for the log."""
+    from vq_tpu_torch.kernels import packed_scan as pk
+
+    parts, out = [], None
+    for bf16 in (True, False):
+        ab = {**a, "use_bf16": bf16}
+        tk = cuda_ms(torch, lambda: pk.packed_scan_topk(**ab))
+        tp = cuda_ms(torch, lambda: pk.packed_scan_topk_plain(**ab))
+        bnd = packed_bound(torch, ab)
+        parts.append(f"{'bf16 (tensor cores)' if bf16 else 'f32 (FFMA)'} kernel {tk:.3f} ms, "
+                     f"plain {tp:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+        out = out or (tk, tp, bnd)
+    return out, f"{what}: " + "; ".join(parts)
+
+
+def synthetic_packed(torch, dev, n, nq, seed):
+    """``packed_scan_topk`` arguments over hand-made segments whose lengths
+    are not multiples of 16 -- uniform 2-bit (ln 40), perdim 3-bit (21),
+    shared 4-bit (9), an f32 value plane (7) -- with seeded codes, level
+    tables, row scales, L2 shifts and norms; n rows (padded to 512), nq
+    queries, L2, k=10, bf16."""
+    from vq_tpu_torch.kernels import packed_scan as pk
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n_pad = -(-n // 512) * 512
+    segs = (pk.make_segspec(2, 40, "uniform", 0), pk.make_segspec(3, 21, "perdim", 1),
+            pk.make_segspec(4, 9, "shared", 2), pk.make_segspec(6, 7, "values", 3))
+    words, lv = [], []
+    for sp in segs:
+        if sp.dequant == "values":
+            words.append(torch.randn((n_pad, sp.ln), generator=g, device=dev))
+            continue
+        idx = torch.randint(0, 1 << sp.bits, (n_pad, sp.ln), generator=g, device=dev)
+        words.append(pk.pack_words(idx, sp.bits, sp.beff))
+        if sp.dequant != "uniform":
+            rows = sp.ln if sp.dequant == "perdim" else 1
+            lv.append(torch.randn((rows, 1 << sp.bits), generator=g, device=dev))
+    d = sum(sp.ln for sp in segs)
+    fac = torch.rand((6, n_pad), generator=g, device=dev) + 0.5  # 4 scales, L2 shift, norm
+    return dict(q_cat=torch.randn((nq, d), generator=g, device=dev),
+                qa=torch.randn((nq,), generator=g, device=dev), words=tuple(words),
+                factors=fac, lv_tables=tuple(lv), segs=segs, k=10, family="seg",
+                metric_kind="l2", norm_col=5, r2_cols=(4,), limit=n, use_bf16=True,
+                prune=False, tile_stats=None, qprune=None)
+
+
+def sass_hmma(lib_path) -> dict:
+    """HMMA (tensor-core) instructions in each packed_scan_kernel instance
+    of the built library, from ``cuobjdump -sass``: {"bf16": n, "f32": n}."""
+    from vq_tpu_torch.kernels._build import find_nvcc
+
+    tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    out = {}
+    for sec in sass.split("Function : ")[1:]:
+        name = sec.split("\n", 1)[0]
+        if "packed_scan_kernel" in name:
+            out["bf16" if "packed_scan_kernelILb1" in name else "f32"] = sec.count("HMMA")
+    return out
+
+
 def phase_packed_edges(torch, dev, q, m, packed, codes):
     """SAQ uniform: limit < k, limit masking, N < 512, k = 1 and 128, planted
-    ties; f32 ids must equal the plain version's where separated."""
+    ties; f32 ids must equal the plain version's where separated.  Then bf16
+    (tensor cores) on the shapes the MMA path finds hard -- Q = 1, 7 and 65
+    (not multiples of its 8-query tiles or 64-query blocks), k = 1 and 128,
+    N < 512, and segments whose lengths are not multiples of its 16-dim
+    k-steps -- against the plain bf16 version: ids below the limit and a
+    pooled recall ≥ BF16_MIN_RECALL."""
     from vq_tpu_torch import Metric
     from vq_tpu_torch.kernels import packed_scan as pk
     from vq_tpu_torch.methods import saq as sq
@@ -587,6 +662,35 @@ def phase_packed_edges(torch, dev, q, m, packed, codes):
         a = sq.packed_scan_args(m.plan, m.params, q, same, k, Metric.L2, use_bf16=False)
         require(bool((pk.packed_scan_topk(**a)[1] == torch.arange(k, device=dev)).all()),
                 "packed tie order")
+    syn = synthetic_packed(torch, dev, 1000, 65, seed=9)  # two tiles, the last partial
+    for kind, limit in (("l2", 1000), ("ip", 1000 - 77), ("nip", 1000)):
+        a = {**syn, "metric_kind": kind, "limit": limit, "use_bf16": False}
+        ks, ki = pk.packed_scan_topk(**a)
+        require(bool((ki < limit).all()), f"packed edge segments {kind}: ids past limit")
+        rs, ri = pk.packed_scan_topk_plain(**{**a, "k": 11})
+        check_topk_f32(torch, ks, ki, rs, ri, 10, packed_tol(torch, a),
+                       f"packed edge segments ln (40, 21, 9, 7) {kind} limit={limit}")
+    hits = total = 0
+    cases = []
+    for what, a in ([(f"SAQ Q={nq} k={k}", sq.packed_scan_args(m.plan, m.params, q[:nq], packed,
+                                                                k, Metric.L2))
+                     for nq in (1, 7, 65) for k in (1, 128)] +
+                    [("SAQ N=300 Q=65 IP", sq.packed_scan_args(m.plan, m.params, q[:65], small,
+                                                               10, Metric.IP))] +
+                    [(f"segments Q={nq} k={k} {kind}",
+                      {**syn, "q_cat": syn["q_cat"][:nq], "qa": syn["qa"][:nq], "k": k,
+                       "metric_kind": kind, "limit": 1000 - 77 if kind == "ip" else 1000})
+                     for nq in (1, 7, 65) for k in (1, 10, 128) for kind in ("l2", "ip")]):
+        ki = pk.packed_scan_topk(**a)[1].cpu()
+        pi = pk.packed_scan_topk_plain(**a)[1].cpu()
+        kk = min(a["k"], a["limit"])
+        require(bool((ki < a["limit"]).all()), f"packed bf16 edge {what}: ids past limit")
+        h = sum(len(set(x[:kk]) & set(y[:kk])) for x, y in zip(ki.tolist(), pi.tolist()))
+        hits, total = hits + h, total + kk * ki.shape[0]
+        cases.append(f"{what} {h / (kk * ki.shape[0]):.3f}")
+    log("[phase 6] bf16 edge cases, recall@k vs plain bf16: " + ", ".join(cases))
+    require(hits / total >= BF16_MIN_RECALL,
+            f"packed bf16 edge cases: pooled recall {hits / total} < {BF16_MIN_RECALL}")
 
 
 def phase_packed_kernels(torch, dev, results, n=100_000, d=1024, nq=256):
@@ -638,19 +742,19 @@ def phase_packed_kernels(torch, dev, results, n=100_000, d=1024, nq=256):
                 require(torch.equal(bpi, bi), f"packed bf16 prune {what}: differs from off")
         for kind in kinds:
             kind_launches[kind] += pk.packed_scan_topk.launches - before
-        a = args(Metric.L2, 10, True, False)
-        tk = cuda_ms(torch, lambda: pk.packed_scan_topk(**a))
-        tp = cuda_ms(torch, lambda: pk.packed_scan_topk_plain(**a))
+        (tk, tp, bnd), line = time_packed(torch, args(Metric.L2, 10, True, False), "L2 k=10")
+        a = args(Metric.L2, 100, True, False)
+        t100, b100 = cuda_ms(torch, lambda: pk.packed_scan_topk(**a)), packed_bound(torch, a)
         r["max_abs_err"] = max(r["max_abs_err"], worst)
         r["times"][tag] = (tk, tp)
-        r["bounds"][tag] = packed_bound(torch, a)
+        r["bounds"][tag] = bnd
         log(f"[phase 6] {tag} kinds {sorted(kinds)}: f32 max_abs_err={worst:.3e}, ids = plain "
             f"at {n_sep} separated (query, metric, k); prune ids = dense; lowest bf16 recall@k "
             f"vs plain f32 {worst_rec[0]:.4f} (plain bf16 vs f32 {worst_rec[1]:.4f}, kernel vs "
             f"plain bf16 {worst_rec[2]:.4f}); scanned fraction with prune "
-            f"{min(fracs):.3f}-{max(fracs):.3f}"
-            f"; L2 k=10 bf16 kernel {tk:.3f} ms, plain {tp:.3f} ms (CUDA events, median of 5), "
-            f"bound {r['bounds'][tag][0]:.4f} ms ({r['bounds'][tag][1]})")
+            f"{min(fracs):.3f}-{max(fracs):.3f}")
+        log(f"[phase 6] {tag} times (CUDA events, median of 5): {line}; L2 k=100 bf16 kernel "
+            f"{t100:.3f} ms, bound {b100[0]:.4f} ms ({b100[1]})")
     require_launched(kind_launches, "a dequant kind was never launched")
     tag, args, kinds, m, packed = configs[0]
     phase_packed_edges(torch, dev, q, m, packed, m.compress(x[:3000]))
@@ -889,18 +993,19 @@ def phase_gather_kernels(torch, dev, results, n=100_000, d=1024, nq=256):
                 f"bit; no tile -inf/id 0; prune ids = unpruned, largest scanned fraction of "
                 f"masked-in pairs {max_frac:.3f}; mask_cap never changes the result; lowest "
                 f"bf16 recall@10 vs plain bf16 {worst_rec:.4f}")
-        if not r["times"]:  # times on the first configuration, L2 k=10 bf16
+        log(line)
+        if not r["times"]:  # times on the first configuration, L2 k=10
             for mname in ("25% random", "all"):
-                a = {**args(Metric.L2, 10, True, False), "tile_mask": masks[mname]}
-                tk = cuda_ms(torch, lambda: pk.packed_scan_topk(**a))
-                tp = cuda_ms(torch, lambda: pk.packed_scan_topk_plain(**a))
-                bnd = packed_bound(torch, a)
-                line += (f"; {mname} mask: gather kernel {tk:.3f} ms, plain {tp:.3f} ms, "
-                         f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+                (tk, tp, bnd), line = time_packed(
+                    torch, {**args(Metric.L2, 10, True, False), "tile_mask": masks[mname]},
+                    f"{mname} mask, gather")
+                log(f"[phase 9] {tag} times (CUDA events, median of 5): {line}")
                 r["times"][mname], r["bounds"][mname] = (tk, tp), bnd
             a = args(Metric.L2, 10, True, False)
-            line += f"; dense kernel {cuda_ms(torch, lambda: pk.packed_scan_topk(**a)):.3f} ms"
-        log(line)
+            log(f"[phase 9] {tag} dense kernel (CUDA events, median of 5): bf16 "
+                f"{cuda_ms(torch, lambda: pk.packed_scan_topk(**a)):.3f} ms, f32 "
+                f"{cuda_ms(torch, lambda: pk.packed_scan_topk(**{**a, 'use_bf16': False})):.3f} "
+                f"ms")
     require_launched({"gather": pk.packed_scan_topk.gather_launches},
                      "the gather checks never launched the gather kernel")
     torch.cuda.synchronize()
@@ -1115,9 +1220,15 @@ def main() -> int:
     lib_path = _build.build_library()
     _build.load_library()
     log(f"[phase 2] built {os.path.relpath(lib_path)} in {time.perf_counter() - t0:.3f} s")
+    entry = ""  # the kernel each report line is about, from its mangled name
     for line in lib_path.with_suffix(".log").read_text().splitlines():
-        if "Used" in line or "spill" in line:
-            log(f"[phase 2] ptxas: {line.strip()}")
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1].split("_cu_")[-1][8:].lstrip("0123456789")
+        elif "Used" in line or "spill" in line:
+            log(f"[phase 2] ptxas {entry}: {line.strip()}")
+    hmma = sass_hmma(lib_path)
+    log(f"[phase 2] HMMA instructions in packed_scan_kernel's SASS (cuobjdump -sass): {hmma}")
+    require(hmma.get("bf16", 0) > 0, "the bf16 packed kernel does not reach the tensor cores")
 
     results = {}
     phase_kernel_edges(torch, dev)

@@ -60,6 +60,21 @@ def test_phase_packed_kernels_rehearsal(cpu_smoke):
     assert len(results["packed_scan_topk"]["times"]) == 4
 
 
+def test_phase_packed_edges_rehearsal(cpu_smoke):
+    """Phase 6's edge cases with enough queries for Q = 65 (bf16: Q = 1, 7,
+    65, k = 1 and 128, N = 300, segment lengths 40, 21, 9 and 7)."""
+    x, q, _ = cs.packed_corpus(torch, 3000, 128, 70, seed=3, dev=cpu_smoke)
+    _, _, _, m, packed = cs.packed_configs(torch, x, q, torch.linalg.norm(x, dim=1))[0]
+    cs.phase_packed_edges(torch, cpu_smoke, q, m, packed, m.compress(x))
+
+
+def test_synthetic_packed_segments_are_not_multiples_of_16():
+    a = cs.synthetic_packed(torch, torch.device("cpu"), 1000, 5, seed=1)
+    assert [s.ln for s in a["segs"]] == [40, 21, 9, 7]
+    assert a["q_cat"].shape == (5, 77) and a["factors"].shape == (6, 1024)
+    assert [s.dequant for s in a["segs"]] == ["uniform", "perdim", "shared", "values"]
+
+
 def test_phase_packed_paths_rehearsal(cpu_smoke):
     assert cs.phase_saq_main(torch, cpu_smoke, n=4000, d=128, nq=8, profile=False) == 0
     assert cs.phase_rabitq_main(torch, cpu_smoke, n=4000, d=128, nq=8) == 0

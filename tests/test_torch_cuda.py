@@ -157,6 +157,28 @@ def test_ivf_packed_search_launches_the_gather_kernel(dev, name):
     assert torch.equal(full, index.ids_sorted[pos.long()].to(full.dtype))
 
 
+def test_packed_kernel_at_a_partial_query_block(dev):
+    """Q = 70: one full 64-query block and a partial one, in bf16 and f32;
+    each call launches the kernel once and stays on the card, and the
+    gather mode over every tile returns the dense kernel's result."""
+    from vq_tpu_torch.methods import saq as saq_mod
+
+    x = torch.randn((6000, 64), generator=torch.Generator(dev).manual_seed(4), device=dev)
+    q = SAQ(SAQConfig(bits_per_dim=2.0, block_dims=16))
+    cache = FlatQuantizedIndex(q).fit(x)._scan_cache
+    every = torch.ones((cache.factors.shape[1] // 512,), dtype=torch.int32, device=dev)
+    pk.reset_launch_counts()
+    for bf16 in (True, False):
+        a = saq_mod.packed_scan_args(q.plan, q.params, x[:70], cache, 10, Metric.L2,
+                                     use_bf16=bf16)
+        s, ids = pk.packed_scan_topk(**a)
+        assert ids.is_cuda and ids.shape == (70, 10) and bool((ids < 6000).all())
+        assert bool(torch.isfinite(s).all())
+        gs, gi = pk.packed_scan_topk(**a, tile_mask=every)
+        assert torch.equal(gi, ids) and torch.equal(gs, s)
+    assert (pk.packed_scan_topk.launches, pk.packed_scan_topk.gather_launches) == (2, 2)
+
+
 def test_cuda_tile_mask_on_a_cpu_cache_raises(dev):
     seg = pk.make_segspec(2, 32, "uniform", -1)
     q, qa = torch.zeros((3, 32)), torch.zeros((3,))

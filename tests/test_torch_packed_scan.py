@@ -284,3 +284,31 @@ def test_wrapper_validates_inputs_before_launch():
         with pytest.raises(ValueError, match="tile_mask"):
             tps._check_inputs(q, qa, packed.words, packed.factors, lv, segs, 10, **kw,
                               tile_mask=bad)
+
+
+@pytest.mark.parametrize("qblocks", [1, 2, 3, 4, 5, 8, 64])
+@pytest.mark.parametrize("k", [1, 10, 100, 128])
+def test_grid_chunks_splits_the_tiles(qblocks, k):
+    """The card's grid split: at most one chunk per tile; every merge launch
+    within the merge cap (one launch of chunks·k candidates, or groups of
+    cap // k lists first); beyond one wave, whole waves up to one chunk
+    column (one group of lists where the merge takes two launches)."""
+    slots, cap = 132, 4096
+    g = cap // k
+    for nb in (1, 7, 196, 2048):
+        chunks = tps.grid_chunks(slots, qblocks, nb, cap, k)
+        groups = tps.merge_groups(chunks, cap, k)
+        assert 1 <= chunks <= nb
+        if groups:
+            assert chunks == groups * g and groups * k <= cap and qblocks * g < slots
+        else:
+            assert chunks * k <= cap
+        blocks = qblocks * chunks
+        if blocks > slots:
+            assert -blocks % slots < qblocks * (g if groups else 1)
+
+
+@pytest.mark.parametrize("qblocks", [132, 200, 5000])
+def test_grid_chunks_one_chunk_when_query_blocks_fill_the_slots(qblocks):
+    assert tps.grid_chunks(132, qblocks, 2048, 4096, 10) == 1
+    assert tps.merge_groups(1, 4096, 128) == 0

@@ -71,6 +71,112 @@ __device__ __forceinline__ float warp_merge_candidates(float* s, int* id, int k,
   return s[k - 1];
 }
 
+// Number of the n sorted entries (s, id) that rank before (vs, vi)
+__device__ __forceinline__ int rank_in(const float* s, const int* id, int n, float vs, int vi) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (ranks_before(s[mid], id[mid], vs, vi)) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// warp_merge_sorted for nc <= 32, in registers: lane l holds candidate l
+// and top-k entries l + 32u; a candidate's place is its rank among the
+// candidates (shuffles) plus its rank in the top-k (binary search), an
+// entry's place its index plus the candidates that rank before it.
+__device__ __forceinline__ float warp_merge_few(float* s, int* id, int k, int nc, int lane) {
+  float* cs = s + k;
+  int* ci = id + k;
+  const bool has = lane < nc;
+  const float vs = has ? cs[lane] : -INFINITY;
+  const int vi = has ? ci[lane] : INT_MAX;
+  float ts[4];
+  int ti[4], tp[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int m = lane + 32 * u;
+    ts[u] = m < k ? s[m] : -INFINITY;
+    ti[u] = m < k ? id[m] : INT_MAX;
+    tp[u] = m < k ? m : kMaxK + 32;  // past k whatever it gains
+  }
+  int pc = has ? rank_in(s, id, k, vs, vi) : kMaxK + 32;
+#pragma unroll 4
+  for (int m = 0; m < nc; ++m) {
+    const float os = __shfl_sync(0xffffffffu, vs, m);
+    const int oi = __shfl_sync(0xffffffffu, vi, m);
+    pc += ranks_before(os, oi, vs, vi);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) tp[u] += ranks_before(os, oi, ts[u], ti[u]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    if (tp[u] < k) {
+      s[tp[u]] = ts[u];
+      id[tp[u]] = ti[u];
+    }
+  }
+  if (pc < k) {
+    s[pc] = vs;
+    id[pc] = vi;
+  }
+  if (has) {
+    cs[lane] = -INFINITY;
+    ci[lane] = INT_MAX;
+  }
+  __syncwarp();
+  return s[k - 1];
+}
+
+// The same merge as warp_merge_candidates at a cost that follows nc, not
+// k: up to 32 candidates by warp_merge_few; more, one warp sorts the nc
+// candidates at s[k, k+nc) alone (bitonic over the next power of two >= nc
+// entries, whose tail past nc holds (-inf, INT_MAX)), places each entry of
+// the two sorted lists at its index plus its rank in the other list (binary
+// search), keeps the first k, clears the candidates and returns the new
+// k-th score.  Needs k <= 128, nc <= 128, candidate scores > -inf and ids
+// unique between the lists; the buffer must hold k + (nc rounded up to a
+// power of two) entries.
+__device__ __forceinline__ float warp_merge_sorted(float* s, int* id, int k, int nc, int lane) {
+  if (nc <= 32) return warp_merge_few(s, id, k, nc, lane);
+  int p = 64;
+  while (p < nc) p <<= 1;
+  float* cs = s + k;
+  int* ci = id + k;
+  bitonic_sort<false>(cs, ci, p, lane, 32);
+  float vs[8];
+  int vi[8], pos[8];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int m = lane + 32 * u;
+    pos[u] = pos[4 + u] = INT_MAX;
+    if (m < k) {
+      vs[u] = s[m], vi[u] = id[m];
+      pos[u] = m + rank_in(cs, ci, nc, vs[u], vi[u]);
+    }
+    if (m < nc) {
+      vs[4 + u] = cs[m], vi[4 + u] = ci[m];
+      pos[4 + u] = m + rank_in(s, id, k, vs[4 + u], vi[4 + u]);
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    if (pos[u] < k) {
+      s[pos[u]] = vs[u];
+      id[pos[u]] = vi[u];
+    }
+  }
+  for (int i = lane; i < nc; i += 32) {
+    cs[i] = -INFINITY;
+    ci[i] = INT_MAX;
+  }
+  __syncwarp();
+  return s[k - 1];
+}
+
 // grid (Q); merges the query's n_cand = chunks * k candidates into its
 // top-k; empty slots get id 0.
 __global__ void merge_kernel(const float* __restrict__ cand_s, const int* __restrict__ cand_i,

@@ -61,7 +61,6 @@ _METRICS = {"l2": 0, "ip": 1, "nip": 2}
 _FAMILIES = {"seg": 0, "rabitq": 1}
 _PLAIN_ELEMS = 1 << 26  # plain twin: cap on one (Q, rows) score block
 _WAVES = 4  # kernel blocks per resident block slot the chunking aims for
-_BLOCKS_PER_SM = 2
 
 
 def _b_eff(bits: int) -> int:
@@ -365,20 +364,43 @@ def _check_inputs(q_cat, qa, words, factors, lv_tables, segs, k, metric_kind, fa
                              f"({n // TILE},), got {tile_mask.dtype} {tuple(tile_mask.shape)}")
 
 
-def _chunks(device, num_q: int, qb: int, nb: int, k: int) -> int:
-    """Tile chunks per query block: enough blocks for _WAVES waves over the
-    SMs, at most one per tile and at most what the merge kernel sorts;
-    beyond one wave, rounded down to whole waves (a last, partial wave
-    leaves most SMs idle while it runs)."""
-    from vq_tpu_torch.kernels._build import load_library
-
-    slots = torch.cuda.get_device_properties(device).multi_processor_count * _BLOCKS_PER_SM
-    qblocks = -(-num_q // qb)
-    chunks = max(1, min(-(-_WAVES * slots // qblocks), nb,
-                        load_library().vq_merge_cap() // k))
+def grid_chunks(slots: int, qblocks: int, nb: int, merge_cap: int, k: int) -> int:
+    """Tile chunks per query block of a (qblocks, chunks) grid over ``slots``
+    resident blocks (SMs × blocks per SM): one when the query blocks alone
+    fill the slots; else enough blocks for _WAVES waves and at most one
+    chunk per tile; beyond one wave, rounded down to whole waves (a last,
+    partial wave leaves most SMs idle while it runs).  A merge launch sorts
+    at most ``merge_cap`` candidates a query, g = merge_cap // k chunk
+    lists.  Where g chunks a query block cannot fill the slots (few
+    queries, large k), the lists merge in groups of g first
+    (``merge_groups``): chunks is then a multiple of g, at most g²."""
+    if qblocks >= slots:
+        return 1
+    g = merge_cap // k
+    cap = g if qblocks * g >= slots else g * g
+    chunks = max(1, min(-(-_WAVES * slots // qblocks), nb, cap))
     if qblocks * chunks > slots:
         chunks = max(1, qblocks * chunks // slots * slots // qblocks)
-    return chunks
+    return chunks // g * g if chunks > g else chunks
+
+
+def merge_groups(chunks: int, merge_cap: int, k: int) -> int:
+    """First-level merges a query (0: the chunk lists merge in one launch)."""
+    g = merge_cap // k
+    return chunks // g if chunks > g else 0
+
+
+def _chunks(lib, device, desc: np.ndarray, use_bf16: bool, num_q: int, nb: int, k: int) -> int:
+    """``grid_chunks`` at the resident blocks per SM that the library
+    reports for this launch (its shared memory depends on the mode and the
+    level tables)."""
+    per_sm = lib.vq_packed_blocks_per_sm(desc.ctypes.data, desc.shape[0], int(use_bf16))
+    if per_sm < 1:
+        raise RuntimeError("packed_scan_kernel: no block fits on an SM at this launch's "
+                           "shared memory")
+    slots = torch.cuda.get_device_properties(device).multi_processor_count * per_sm
+    return grid_chunks(slots, -(-num_q // lib.vq_packed_queries_per_block()), nb,
+                       lib.vq_merge_cap(), k)
 
 
 def compact_tile_mask(tile_mask: torch.Tensor):
@@ -447,20 +469,26 @@ def packed_scan_topk(q_cat, qa, words, factors, lv_tables, segs, k: int,
         desc[s] = (w.data_ptr(), lv_ptr, seg.bits, seg.beff, seg.ln, _KINDS[seg.dequant],
                    seg.scale_col, 0)
     r2 = np.asarray(r2_cols or (0,), dtype=np.int32)
-    chunks = _chunks(dev, num_q, lib.vq_packed_queries_per_block(), n // TILE, k)
-    cand_s = torch.empty((num_q, chunks, k), dtype=torch.float32, device=dev)
-    cand_i = torch.empty((num_q, chunks, k), dtype=torch.int32, device=dev)
-    kth_g = (torch.full((num_q,), lib.vq_ordered_neg_inf(), dtype=torch.int32, device=dev)
-             if prune else scanned)
+    chunks = _chunks(lib, dev, desc, use_bf16, num_q, n // TILE, k)
+    ncand = num_q * (chunks + merge_groups(chunks, lib.vq_merge_cap(), k)) * k
+    cand_s = torch.empty((ncand,), dtype=torch.float32, device=dev)
+    cand_i = torch.empty((ncand,), dtype=torch.int32, device=dev)
+    kth_g = torch.full((num_q,), lib.vq_ordered_neg_inf(), dtype=torch.int32, device=dev)
     stats_ptr = tile_stats.data_ptr() if prune else 0
     qprune_ptr = qprune.data_ptr() if prune else 0
     tiles_ptr = cnt_ptr = 0
     if tile_mask is not None:
         tile_ids, cnt = compact_tile_mask(tile_mask)
         tiles_ptr, cnt_ptr = tile_ids.data_ptr(), cnt.data_ptr()
+    q16_ptr = 0
+    if use_bf16:  # the kernel's scratch of bf16-rounded, zero-padded queries
+        qb, kd = lib.vq_packed_queries_per_block(), lib.vq_packed_stage_dims()
+        q16 = torch.empty((-(-num_q // qb) * qb, sum(-(-s.ln // kd) * kd for s in segs)),
+                          dtype=torch.bfloat16, device=dev)
+        q16_ptr = q16.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
     check(lib.vq_packed_scan_topk(
-        q_cat.data_ptr(), qa.data_ptr(), factors.data_ptr(), stats_ptr, qprune_ptr,
+        q_cat.data_ptr(), q16_ptr, qa.data_ptr(), factors.data_ptr(), stats_ptr, qprune_ptr,
         desc.ctypes.data, len(segs), r2.ctypes.data, len(r2_cols), cand_s.data_ptr(),
         cand_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), scanned.data_ptr(),
         kth_g.data_ptr(), tiles_ptr, cnt_ptr, num_q,
