@@ -9,20 +9,29 @@ Phases (any failure exits non-zero; nothing is caught):
    TF32 off.
 2. Build the CUDA kernels of ``vq_tpu_torch/csrc`` from the checkout (one
    nvcc per source, in parallel); the ptxas report; the HMMA (tensor-core)
-   instructions in the packed kernel's SASS, which bf16 mode must have.
-3. The PQ kernels against their plain PyTorch versions on the card: edge
-   cases at small shapes, then the PQ main path's shapes (Q=1024, D=1536,
-   N=100,000, M=16 / K=256 and M=192 / dsub=8), f32 mode on scores and ids,
-   bf16 mode on recall against the plain f32 ids; kernel and plain times.
+   instructions in the SASS of the packed kernel's bf16 instance and of
+   the PQ decode route's kernels, which must have them.
+3. The PQ kernels against their plain PyTorch versions on the card: f32
+   edge cases at small shapes (the table route); the decode route's edge
+   cases in bf16 (Q = 1, 7, 65; M=25, dsub 3 and 8; K=100; N < 128; M=300;
+   k = 1, 10, 128; limit < k; planted ties) against the plain bf16
+   version; then the PQ main path's widths (Q=1024, D=1536, N=100,000, M=16
+   and M=192), f32 mode on scores and ids, bf16 mode on scores and recall
+   against the plain f32 ids, the fused top-k equal to the top-k of the
+   score kernel's scores bit for bit (f32 at k=10 and 100, bf16 on both
+   routes), kernel and plain times in bf16 and f32 beside each route's
+   bound; and both routes timed in bf16 at dsub 8, 16, 32 and 96 with the
+   route ``pq_route`` picks.
 4. The PQ main path — what ``vq_tpu/bench/sweep.py::run_single_config``
    does: PQ(M=16, B=8) fit, FlatQuantizedIndex fit (encode), ground truth
-   by ``exact_topk``, search at k=10 (fused kernel) and k=100 (score kernel
-   + streaming top-k), on a seeded power-law corpus at N=1,000,000, D=1536.
-   The kernels' launch counters must move during this phase.  The
-   quantizer is built without a device and must follow the corpus onto
-   the card.  Then where the time goes (torch.profiler over 5 searches)
-   and CUDA-event times of the fused kernel at k=100 and of the score
-   kernel over the whole corpus.
+   by ``exact_topk``, search at k=10 and k=100 (fused kernel) and k=256
+   (score kernel + streaming top-k), on a seeded power-law corpus at
+   N=1,000,000, D=1536.  The kernels' launch counters must move during
+   this phase.  The quantizer is built without a device and must follow
+   the corpus onto the card.  Then where the time goes (torch.profiler over
+   5 searches) and CUDA-event times of k=100 by the fused kernel and by the
+   score kernel + streaming top-k, and of the score kernel over the whole
+   corpus.
 5. Quality gate: PQ(M=192, B=8) on the planted-neighbourhood corpus
    (N=100k, D=1536), recall@10 ≥ 0.763.
 6. The packed kernel against its plain version (N=100,000 lognormal rows,
@@ -84,9 +93,10 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 RECALL_GATE_PQ192_FLOOR = 0.763  # bench.py:48
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W): memory rate
 # and the operation rate of each operand type (bf16 on the tensor cores,
-# f32 outside them)
+# f32 outside them).  The 67e12 FP32 rate counts an FMA as two operations,
+# so lone f32 adds (the PQ tables' sums) peak at half of it.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12, "f32 add": 33.5e12}
 # f32 mode: kernel and plain scores differ only in the order of f32 sums
 # (per-subspace table entries vs one length-D dot product).  The rounding
 # error of a sum is relative to the magnitude of its terms, not of the
@@ -144,17 +154,28 @@ def bound_ms(nbytes: float, op_s: float):
 
 
 def pq_bound(q, codes, cb, k, bf16, score_all):
-    """A PQ kernel's bound: codes, codebooks and queries read once, the
-    (Q, k) top-k or the (Q, N) scores written once; the per-query tables
-    (2·K·D products a query, in the operands' type) plus one f32 add per
-    (query, row, subspace)."""
+    """A PQ kernel's bound, the lesser of its two routes' (``pq_route``):
+    each route's operations set against the bytes (codes, codebooks and
+    queries read once, the (Q, k) top-k or the (Q, N) scores written once).
+    Table route: the per-query tables (2·K·D products a query, in the
+    operands' type) plus one f32 add per (query, row, subspace); decode
+    route: 2·Q·N·D products in the operands' type.  Returns (ms, what sets
+    it, the route that sets it, {route: ms})."""
     nq, d = q.shape
     n, m = codes.shape
     nbytes = (codes.numel() * codes.element_size() + cb.numel() * 4 + q.numel() * 4
               + (nq * n * 4 if score_all else nq * k * 8))
-    op_s = (2.0 * nq * cb.shape[1] * d / PEAK_OPS_PER_S["bf16" if bf16 else "f32"]
-            + float(nq) * n * m / PEAK_OPS_PER_S["f32"])
-    return bound_ms(nbytes, op_s)
+    rate = PEAK_OPS_PER_S["bf16" if bf16 else "f32"]
+    routes = {"table": bound_ms(nbytes, 2.0 * nq * cb.shape[1] * d / rate
+                                + float(nq) * n * m / PEAK_OPS_PER_S["f32 add"]),
+              "decode": bound_ms(nbytes, 2.0 * nq * n * d / rate)}
+    best = min(routes, key=lambda r: routes[r][0])
+    return routes[best][0], routes[best][1], best, {r: v[0] for r, v in routes.items()}
+
+
+def pq_bound_text(b) -> str:
+    return (f"{b[0]:.4f} ms ({b[1]}, {b[2]} route; table {b[3]['table']:.4f}, decode "
+            f"{b[3]['decode']:.4f})")
 
 
 def scanned_rows(torch, n_pad, limit, tile_mask=None):
@@ -310,67 +331,158 @@ def phase_kernel_edges(torch, dev, nq=517, n=20000):
                      "edge cases did not launch every kernel")
 
 
+def pq_call(torch, route, q, codes, cb, k=0, l2=True, limit=None):
+    """One bf16 PQ kernel call by ``route`` ("decode" or "table"; k = 0:
+    ``pq_score_all``, else the fused top-k); on the CPU, where the
+    rehearsal runs, the plain version."""
+    from vq_tpu_torch.kernels import pq_scan as ps
+
+    if codes.is_cuda:
+        return ps._scan(q, codes, cb, k, l2, limit, True, route)
+    if k == 0:
+        return ps.pq_score_all_plain(q, codes, cb, l2, True)
+    return ps.pq_scan_topk_fused_plain(q, codes, cb, k, l2, limit, True)
+
+
+def phase_decode_edges(torch, dev):
+    """The decode route (bf16, tensor cores) on the shapes it finds hard,
+    held to the plain bf16 version (the same bf16 products summed in
+    another order, so scores within the f32 tolerance): Q not a multiple of
+    8 or 64, M=25 (the last 64-dim stage partly zero), K=100, N < 128,
+    dsub=3 (codewords not 16-byte aligned), M=300 (codes read past the 256
+    a row tile stages); k = 1, 10, 128, limit < k.  Ids below the limit,
+    limit < k leaving -inf / id 0, the fused top-k = the top-k of the score
+    kernel's scores bit for bit, planted ties giving ids 0..k-1."""
+    from vq_tpu_torch.kernels import pq_scan as ps
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(6)
+    shapes = (("M=25 dsub=8 Q=65", 65, 3000, 25, 256, 8), ("K=100 Q=7", 7, 3000, 16, 100, 8),
+              ("N=77 Q=1", 1, 77, 24, 256, 8), ("dsub=3 Q=65", 65, 2000, 25, 256, 3),
+              ("M=300 dsub=2 Q=33", 33, 1500, 300, 64, 2))
+    worst = 0.0
+    for what, nq, n, m, kk, dsub in shapes:
+        q = torch.randn((nq, m * dsub), generator=g, device=dev)
+        codes = torch.randint(0, kk, (n, m), generator=g, device=dev).to(torch.uint8)
+        cb = torch.randn((m, kk, dsub), generator=g, device=dev)
+        tol = f32_tol(torch, q, cb)
+        for l2 in (True, False):
+            s = pq_call(torch, "decode", q, codes, cb, l2=l2)
+            worst = max(worst, check_scores(torch, s, ps.pq_score_all_plain(q, codes, cb, l2, True),
+                                            tol, f"decode score_all {what} l2={l2}"))
+            for k, limit in ((1, None), (10, n - 17), (128, None), (10, 5)):
+                case = f"decode fused {what} l2={l2} k={k} limit={limit}"
+                ks, ki = pq_call(torch, "decode", q, codes, cb, k, l2, limit)
+                ts, ti = ps.topk_of_scores(s, k, limit)
+                require(torch.equal(ks, ts) and torch.equal(ki, ti),
+                        f"{case}: top-k differs from the score kernel's top-k")
+                lim = min(n, limit or n)
+                require(bool((ki < max(lim, 1)).all()), f"{case}: ids past limit")
+                if lim < k:
+                    require(bool((ks[:, lim:] == -np.inf).all() and (ki[:, lim:] == 0).all()),
+                            f"{case}: limit < k must leave -inf / id 0")
+                rs, _ = ps.pq_scan_topk_fused_plain(q, codes, cb, k, l2, limit, True)
+                kk_ = min(k, lim)
+                worst = max(worst, check_scores(torch, ks[:, :kk_], rs[:, :kk_], tol, case))
+        same = codes[:1].repeat(300, 1)  # every row identical → ids 0..k-1 in order
+        for k in (6, 100):
+            _, ti = pq_call(torch, "decode", q, same, cb, k)
+            require(bool((ti == torch.arange(k, device=dev)).all()), f"decode tie order {what}")
+    torch.cuda.synchronize()
+    log(f"[phase 3] decode-route edge cases ok, scores within the f32 tolerance of the plain "
+        f"bf16 version (max_abs_err={worst:.3e}; {time.perf_counter() - t0:.3f} s)")
+
+
 def phase_kernels(torch, dev, results, n=100_000, d=1536, nq=1024):
+    """The PQ kernels at the main path's widths (Q=1024, D=1536, N=100,000,
+    K=256, k=10).  At the PQ main path's M=16 and the gate's M=192: f32
+    scores and ids against the plain version, the fused top-k =
+    the top-k of the score kernel's scores at k=10 and 100, bf16 scores and
+    recall, kernel / plain times in bf16 and f32 beside both routes'
+    bounds.  At M = 16, 48, 96 and 192 (dsub 96, 32, 16, 8): both routes
+    timed in bf16, each with its fused top-k = the score kernel's bit for
+    bit, and the route pq_route picks."""
     from vq_tpu_torch.kernels import pq_scan as ps
     from vq_tpu_torch.kernels.topk import ordered_topk
     from vq_tpu_torch.methods.pq import encode_chunked
 
     k = 10
     x, q = powerlaw_corpus(torch, n, d, nq, seed=3, dev=dev)
-    for m in (16, 192):
+    for m in (16, 48, 96, 192):
         cb = random_codebooks(torch, x, m, 256, seed=m)
         codes = encode_chunked(cb, x)
         tag = f"M={m} dsub={d // m}"
-        # f32 mode
-        tol = f32_tol(torch, q, cb)
-        s_k = ps.pq_score_all(q, codes, cb, use_bf16=False)
-        s_p = ps.pq_score_all_plain(q, codes, cb, True, False)
-        err_score = check_scores(torch, s_k, s_p, tol, f"score_all f32 {tag}")
-        ks, ki = ps.pq_scan_topk_fused(q, codes, cb, k, use_bf16=False)
-        # both kernels sum the same table entries in the same order, so the
-        # fused top-k must be exactly the top-k of the score kernel's scores
-        ss, si = ordered_topk(s_k, k)
-        require(torch.equal(ki, si) and torch.equal(ks, ss),
-                f"fused {tag}: top-k differs from the score kernel's top-k")
-        del s_k, s_p, ss, si
-        rs, ri = ps.pq_scan_topk_fused_plain(q, codes, cb, k + 1, True, None, False)
-        err_fused, n_sep, n_ord = check_topk_f32(torch, ks, ki, rs, ri, k, tol,
-                                                  f"fused f32 {tag}")
-        log(f"[phase 3] {tag} f32: score_all max_abs_err={err_score:.3e} fused "
-            f"max_abs_err={err_fused:.3e}; fused ids = top-k of score kernel at {nq}/{nq} "
-            f"queries; ids = plain at {n_sep}/{nq} separated queries ({n_ord} fully ordered)")
-        # bf16 mode: kernel vs plain-bf16 scores, recall vs plain f32 ids
-        s_k = ps.pq_score_all(q, codes, cb, use_bf16=True)
-        check_scores(torch, s_k, ps.pq_score_all_plain(q, codes, cb, True, True), tol,
-                     f"score_all bf16 {tag}")
-        del s_k
-        _, bi = ps.pq_scan_topk_fused(q, codes, cb, k, use_bf16=True)
-        rec = recall(ri[:, :k].cpu(), bi.cpu(), k)
-        log(f"[phase 3] {tag} bf16: fused recall@{k} vs plain f32 ids = {rec:.4f}")
-        require(rec >= BF16_MIN_RECALL, f"bf16 recall {rec} < {BF16_MIN_RECALL}")
-        # times, bf16 as the main path runs them
-        t_fk = cuda_ms(torch, lambda: ps.pq_scan_topk_fused(q, codes, cb, k, use_bf16=True))
-        t_fp = cuda_ms(torch, lambda: ps.pq_scan_topk_fused_plain(q, codes, cb, k, True, None,
-                                                                  True))
-        t_sk = cuda_ms(torch, lambda: ps.pq_score_all(q, codes, cb, use_bf16=True))
-        t_sp = cuda_ms(torch, lambda: ps.pq_score_all_plain(q, codes, cb, True, True))
-        log(f"[phase 3] {tag} times (ms, median of 5, bf16): fused kernel {t_fk:.3f} plain "
-            f"{t_fp:.3f}; score_all kernel {t_sk:.3f} plain {t_sp:.3f}")
-        for name, err, tk, tp, score_all in (("pq_scan_topk_fused", err_fused, t_fk, t_fp, False),
-                                             ("pq_score_all", err_score, t_sk, t_sp, True)):
-            r = results.setdefault(name, {"max_abs_err": 0.0, "times": {}, "bounds": {}})
-            r["max_abs_err"] = max(r["max_abs_err"], err)
-            r["times"][tag] = (tk, tp)
-            r["bounds"][tag] = pq_bound(q, codes, cb, k, True, score_all)
-            log(f"[phase 3] {tag} {name} bound {r['bounds'][tag][0]:.4f} ms "
-                f"({r['bounds'][tag][1]})")
+        if m in (16, 192):
+            # f32 mode (the table route)
+            tol = f32_tol(torch, q, cb)
+            s_k = ps.pq_score_all(q, codes, cb, use_bf16=False)
+            s_p = ps.pq_score_all_plain(q, codes, cb, True, False)
+            err_score = check_scores(torch, s_k, s_p, tol, f"score_all f32 {tag}")
+            # both kernels sum the same table entries in the same order, so the
+            # fused top-k must be exactly the top-k of the score kernel's scores
+            for kc in (k, 100):
+                ks, ki = ps.pq_scan_topk_fused(q, codes, cb, kc, use_bf16=False)
+                ss, si = ordered_topk(s_k, kc)
+                require(torch.equal(ki, si) and torch.equal(ks, ss),
+                        f"fused f32 {tag} k={kc}: top-k differs from the score kernel's top-k")
+            del s_k, s_p, ss, si
+            ks, ki = ps.pq_scan_topk_fused(q, codes, cb, k, use_bf16=False)
+            rs, ri = ps.pq_scan_topk_fused_plain(q, codes, cb, k + 1, True, None, False)
+            err_fused, n_sep, n_ord = check_topk_f32(torch, ks, ki, rs, ri, k, tol,
+                                                      f"fused f32 {tag}")
+            log(f"[phase 3] {tag} f32: score_all max_abs_err={err_score:.3e} fused "
+                f"max_abs_err={err_fused:.3e}; fused ids = top-k of score kernel at k=10 and "
+                f"100; ids = plain at {n_sep}/{nq} separated queries ({n_ord} fully ordered)")
+            # bf16 mode: kernel vs plain-bf16 scores, recall vs plain f32 ids
+            s_k = ps.pq_score_all(q, codes, cb, use_bf16=True)
+            check_scores(torch, s_k, ps.pq_score_all_plain(q, codes, cb, True, True), tol,
+                         f"score_all bf16 {tag}")
+            del s_k
+            _, bi = ps.pq_scan_topk_fused(q, codes, cb, k, use_bf16=True)
+            rec = recall(ri[:, :k].cpu(), bi.cpu(), k)
+            log(f"[phase 3] {tag} bf16 ({ps.pq_route(d // m, True)} route): fused recall@{k} "
+                f"vs plain f32 ids = {rec:.4f}")
+            require(rec >= BF16_MIN_RECALL, f"bf16 recall {rec} < {BF16_MIN_RECALL}")
+            # times, bf16 as the main path runs them, and f32
+            tm = {}
+            for bf16 in (True, False):
+                tm[bf16] = [cuda_ms(torch, fn) for fn in (
+                    lambda: ps.pq_scan_topk_fused(q, codes, cb, k, use_bf16=bf16),
+                    lambda: ps.pq_scan_topk_fused_plain(q, codes, cb, k, True, None, bf16),
+                    lambda: ps.pq_score_all(q, codes, cb, use_bf16=bf16),
+                    lambda: ps.pq_score_all_plain(q, codes, cb, True, bf16))]
+                log(f"[phase 3] {tag} times (ms, median of 5, {'bf16' if bf16 else 'f32'}): "
+                    f"fused kernel {tm[bf16][0]:.3f} plain {tm[bf16][1]:.3f}; score_all kernel "
+                    f"{tm[bf16][2]:.3f} plain {tm[bf16][3]:.3f}")
+            for name, err, i, score_all in (("pq_scan_topk_fused", err_fused, 0, False),
+                                            ("pq_score_all", err_score, 2, True)):
+                r = results.setdefault(name, {"max_abs_err": 0.0, "times": {}, "bounds": {}})
+                r["max_abs_err"] = max(r["max_abs_err"], err)
+                r["times"][tag] = (tm[True][i], tm[True][i + 1])
+                b16, b32 = (pq_bound(q, codes, cb, k, bf16, score_all) for bf16 in (True, False))
+                r["bounds"][tag] = b16[:2]
+                log(f"[phase 3] {tag} {name} bound bf16 {pq_bound_text(b16)}; f32 "
+                    f"{pq_bound_text(b32)}")
+        # both routes in bf16: the crossover of pq_route
+        rt = {}
+        for route in ("decode", "table"):
+            fs, fi = pq_call(torch, route, q, codes, cb, k)
+            ss, si = ps.topk_of_scores(pq_call(torch, route, q, codes, cb), k)
+            require(torch.equal(fi, si) and torch.equal(fs, ss),
+                    f"{route} route {tag} bf16: fused top-k differs from the score kernel's")
+            rt[route] = (cuda_ms(torch, lambda: pq_call(torch, route, q, codes, cb, k)),
+                         cuda_ms(torch, lambda: pq_call(torch, route, q, codes, cb)))
+        log(f"[phase 3] routes {tag} bf16 k={k} (ms, median of 5): decode fused "
+            f"{rt['decode'][0]:.3f} score_all {rt['decode'][1]:.3f}; table fused "
+            f"{rt['table'][0]:.3f} score_all {rt['table'][1]:.3f}; fused top-k = score "
+            f"kernel's bit for bit on both; pq_route picks {ps.pq_route(d // m, True)}")
         del codes, cb
     del x, q
     torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------- phase 4
-def profile_search(torch, index, q, ks=(10, 100), tag="", reps: int = 5) -> None:
+def profile_search(torch, index, q, ks=(10, 100, 256), tag="", reps: int = 5) -> None:
     """torch.profiler over `reps` searches at each k: wall and device-busy ms
     per search, idle share, device ms per kernel."""
     from torch.profiler import ProfilerActivity, profile
@@ -401,7 +513,7 @@ def phase_main(torch, dev, n=1_000_000, d=1536, nq=1024, profile=True):
     from vq_tpu_torch import KMeansConfig, PQConfig, SearchConfig
     from vq_tpu_torch.index.flat import FlatQuantizedIndex
     from vq_tpu_torch.kernels import pq_scan as ps
-    from vq_tpu_torch.kernels.adc import exact_topk
+    from vq_tpu_torch.kernels.adc import _score_kernel_topk, exact_topk
     from vq_tpu_torch.methods.pq import PQ
 
     (x, q), t_gen = wall_s(torch, lambda: powerlaw_corpus(torch, n, d, nq, seed=0, dev=dev))
@@ -421,7 +533,7 @@ def phase_main(torch, dev, n=1_000_000, d=1536, nq=1024, profile=True):
     log(f"[phase 4] fit {t_fit:.3f} s; encode (index fit) {t_enc:.3f} s "
         f"({n / t_enc:.0f} rows/s); ground truth k=100 {t_gt:.3f} s")
     out = {}
-    for k in (10, 100):
+    for k in (10, 100, 256):  # k ≤ 128: the fused kernel; 256: the score kernel
         index.search_with_scores(q, k)  # warm-up
         runs = [wall_s(torch, lambda: index.search_with_scores(q, k)) for _ in range(3)]
         ids, scores = runs[-1][0]
@@ -430,15 +542,17 @@ def phase_main(torch, dev, n=1_000_000, d=1536, nq=1024, profile=True):
         require(bool(np.isfinite(scores).all()) and int(ids.max()) < n, f"k={k} result values")
         require(bool((np.diff(scores, axis=1) >= 0).all()), f"k={k} distances not ascending")
         out[k] = ids
-        recalls = ", ".join(f"recall@{r} {recall(gt, ids, r):.4f}" for r in sorted({10, k}))
+        recalls = ", ".join(f"recall@{r} {recall(gt, ids, r):.4f}" for r in sorted({10, min(k, 100)}))
         log(f"[phase 4] search k={k}: {t * 1e3:.3f} ms/batch (median of 3, host clock), "
             f"QPS {nq / t:.1f}, {recalls}")
     launches = {"pq_scan_topk_fused": ps.pq_scan_topk_fused.launches,
                 "pq_score_all": ps.pq_score_all.launches}
     log(f"[phase 4] launches during the main path: {launches}")
     require_launched(launches, "a kernel of the main path never launched")
-    # both kernel routes score with the same tables: k=10 ids are k=100's head
+    # both kernels sum the same table entries in the same order: the k=10 ids
+    # are k=100's head, and k=100's are k=256's
     require(bool((out[10] == out[100][:, :10]).all()), "k=10 and k=100 searches disagree")
+    require(bool((out[100] == out[256][:, :100]).all()), "k=100 and k=256 searches disagree")
     # reference on a query subset: the plain version on the same codes
     sub = q[:64]
     _, ri = ps.pq_scan_topk_fused_plain(sub, index.codes, pq.params.codebooks, 10, True, None,
@@ -448,14 +562,16 @@ def phase_main(torch, dev, n=1_000_000, d=1536, nq=1024, profile=True):
     require(rec >= BF16_MIN_RECALL, "main path disagrees with its plain reference")
     if profile:
         profile_search(torch, index, q)
-        # CUDA-event times of the fused kernel at k=100 and of the score
-        # kernel over all rows (the k=100 route runs it over row tiles)
+        # k=100 by both routes of scan_codes_topk (CUDA events): the fused
+        # kernel, and the score kernel over row tiles + streaming top-k; and
+        # the score kernel alone over all rows
         codes, cb = index.codes, pq.params.codebooks
         t_fused = cuda_ms(torch, lambda: ps.pq_scan_topk_fused(q, codes, cb, 100))
+        t_two = cuda_ms(torch, lambda: _score_kernel_topk(q, codes, cb, 100, True, True, n))
         t_score = cuda_ms(torch, lambda: ps.pq_score_all(q, codes, cb))
-        log(f"[profile] N={codes.shape[0]} bf16 (CUDA events, median of 5): "
-            f"pq_scan_topk_fused k=100 {t_fused:.3f} ms; pq_score_all over all rows "
-            f"{t_score:.3f} ms")
+        log(f"[profile] N={codes.shape[0]} k=100 bf16 (CUDA events, median of 5): fused kernel "
+            f"{t_fused:.3f} ms; score kernel + streaming top-k {t_two:.3f} ms; "
+            f"pq_score_all over all rows {t_score:.3f} ms")
     del x, q, index, pq
     torch.cuda.empty_cache()
     return launches
@@ -611,8 +727,10 @@ def synthetic_packed(torch, dev, n, nq, seed):
 
 
 def sass_hmma(lib_path) -> dict:
-    """HMMA (tensor-core) instructions in each packed_scan_kernel instance
-    of the built library, from ``cuobjdump -sass``: {"bf16": n, "f32": n}."""
+    """HMMA (tensor-core) instructions in the scan kernels of the built
+    library, from ``cuobjdump -sass``: {"bf16": n, "f32": n} of the packed
+    kernel's two instances, "pq decode score_all" / "pq decode fused" of the
+    PQ decode route's."""
     from vq_tpu_torch.kernels._build import find_nvcc
 
     tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
@@ -623,6 +741,9 @@ def sass_hmma(lib_path) -> dict:
         name = sec.split("\n", 1)[0]
         if "packed_scan_kernel" in name:
             out["bf16" if "packed_scan_kernelILb1" in name else "f32"] = sec.count("HMMA")
+        elif "decode_scan_kernel" in name:
+            out["pq decode " + ("score_all" if "decode_scan_kernelILb1" in name
+                                else "fused")] = sec.count("HMMA")
     return out
 
 
@@ -1227,11 +1348,14 @@ def main() -> int:
         elif "Used" in line or "spill" in line:
             log(f"[phase 2] ptxas {entry}: {line.strip()}")
     hmma = sass_hmma(lib_path)
-    log(f"[phase 2] HMMA instructions in packed_scan_kernel's SASS (cuobjdump -sass): {hmma}")
+    log(f"[phase 2] HMMA instructions in the scan kernels' SASS (cuobjdump -sass): {hmma}")
     require(hmma.get("bf16", 0) > 0, "the bf16 packed kernel does not reach the tensor cores")
+    require(hmma.get("pq decode score_all", 0) > 0 and hmma.get("pq decode fused", 0) > 0,
+            "the PQ decode route does not reach the tensor cores")
 
     results = {}
     phase_kernel_edges(torch, dev)
+    phase_decode_edges(torch, dev)
     phase_kernels(torch, dev, results)
     phase_packed_kernels(torch, dev, results)
     launches = phase_main(torch, dev)

@@ -45,6 +45,12 @@ def test_phase_kernels_rehearsal(cpu_smoke):
         assert set(results[name]["times"]) == {"M=16 dsub=24", "M=192 dsub=2"}
 
 
+def test_phase_decode_edges_rehearsal(cpu_smoke):
+    """Phase 3's decode-route edge cases (Q = 1, 7, 65; M=25 with dsub 3
+    and 8; K=100; N=77; M=300; k = 1, 10, 128; limit < k; ties)."""
+    cs.phase_decode_edges(torch, cpu_smoke)
+
+
 def test_phase_main_and_gate_rehearsal(cpu_smoke):
     # profile=False: torch.profiler records no device time on the CPU
     launches = cs.phase_main(torch, cpu_smoke, n=1500, d=32, nq=8, profile=False)
@@ -102,6 +108,44 @@ def test_bounds_are_the_larger_of_bytes_and_operations():
     mask = torch.tensor([1, 0, 1], dtype=torch.int32)
     assert cs.scanned_rows(torch, 1536, 1300) == 1300
     assert cs.scanned_rows(torch, 1536, 1300, mask) == 512 + 276
+
+
+@pytest.mark.parametrize("m,bf16,want", [(16, True, "table"), (192, True, "decode"),
+                                         (16, False, "table"), (192, False, "table")])
+def test_pq_bound_is_the_lesser_of_the_two_routes(m, bf16, want):
+    """Q=1024, N=100k, D=1536, k=10: the table route's Q·N·M f32 adds at
+    33.5e12 a second (plus the tables) against the decode route's 2·Q·N·D
+    products at the operands' rate; each against the same bytes."""
+    nq, n, d = 1024, 100_000, 1536
+    q = torch.empty((nq, d), device="meta")
+    codes = torch.empty((n, m), dtype=torch.uint8, device="meta")
+    cb = torch.empty((m, 256, d // m), device="meta")
+    ms, by, route, routes = cs.pq_bound(q, codes, cb, 10, bf16, False)
+    rate = 989e12 if bf16 else 67e12
+    assert routes["decode"] == pytest.approx(2.0 * nq * n * d / rate * 1e3)
+    assert routes["table"] == pytest.approx((2.0 * nq * 256 * d / rate + nq * n * m / 33.5e12)
+                                            * 1e3)
+    assert (route, by) == (want, "operations") and ms == min(routes.values())
+    # the score kernel's (Q, N) f32 writes outweigh neither route's operations here
+    assert cs.pq_bound(q, codes, cb, 10, bf16, True)[2] == want
+
+
+def test_packed_scan_bits_compare_needs_every_result_equal(tmp_path):
+    """scripts/packed_scan_bits.py compare: 0 only when both saved sets hold
+    the same results bit for bit."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parents[1] / "scripts" / "packed_scan_bits.py"
+    spec = importlib.util.spec_from_file_location("packed_scan_bits", path)
+    bits = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bits)
+    a = {"x": [torch.tensor([1.0, -float("inf")]), torch.tensor([3, 0])]}
+    for name, d in (("a", a), ("b", {"x": [a["x"][0].clone(), a["x"][1].clone()]}),
+                    ("c", {"x": [torch.tensor([1.0, 2.0]), a["x"][1]]}), ("d", {})):
+        torch.save(d, tmp_path / f"{name}.pt")
+    assert bits.compare(str(tmp_path / "a.pt"), str(tmp_path / "b.pt")) == 0
+    assert bits.compare(str(tmp_path / "a.pt"), str(tmp_path / "c.pt")) == 1
+    assert bits.compare(str(tmp_path / "a.pt"), str(tmp_path / "d.pt")) == 1
 
 
 def test_exits_nonzero_without_a_card(monkeypatch, capsys):

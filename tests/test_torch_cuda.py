@@ -42,13 +42,16 @@ def _inputs(dev, n=20000, q=45, m=8, kk=256, dsub=8, seed=7):
 
 
 # M=256 at K=256: one query's table exceeds shared memory; the kernels still
-# run (reading it from global memory), nothing falls back to plain code
+# run (reading the tables from global memory), nothing falls back to plain
+# code.  k ≤ 128 takes the fused kernel, k > 128 the score kernel; bf16 at
+# dsub 2 and 8 the decode route, f32 the table route.
 @pytest.mark.parametrize("m,dsub", [(8, 8), (256, 2)])
-@pytest.mark.parametrize("k,fused,score", [(10, 1, 0), (100, 0, 1)])
-def test_scan_codes_topk_routes_through_kernels(dev, m, dsub, k, fused, score):
+@pytest.mark.parametrize("k,fused,score", [(10, 1, 0), (100, 1, 0), (200, 0, 1)])
+@pytest.mark.parametrize("use_bf16", [False, True])
+def test_scan_codes_topk_routes_through_kernels(dev, m, dsub, k, fused, score, use_bf16):
     q, codes, cb = _inputs(dev, m=m, dsub=dsub)
     ps.reset_launch_counts()
-    _, ids = scan_codes_topk(q, codes, cb, k, Metric.L2, use_bf16=False)
+    _, ids = scan_codes_topk(q, codes, cb, k, Metric.L2, use_bf16=use_bf16)
     assert ids.shape == (45, k) and ids.is_cuda
     assert (ps.pq_scan_topk_fused.launches, ps.pq_score_all.launches) == (fused, score)
 

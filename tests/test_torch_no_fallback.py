@@ -146,7 +146,7 @@ def test_cpu_tensors_run_plain_versions_without_launches():
     ts, ti = ps.pq_scan_topk_fused(q, codes, cb, 10, limit=600)
     ws, wi = ps.pq_scan_topk_fused_plain(q, codes, cb, 10, limit=600)
     assert torch.equal(ti, wi) and torch.equal(ts, ws)
-    for k in (10, 100):  # both routes of scan_codes_topk
+    for k in (10, 200):  # both routes of scan_codes_topk (k ≤ 128 and k > 128)
         scan_codes_topk(q, codes, cb, k, Metric.L2)
     assert ps.pq_score_all.launches == 0 and ps.pq_scan_topk_fused.launches == 0
 

@@ -109,3 +109,85 @@ def test_wrapper_validates_inputs_before_launch():
         tps._check_inputs(q, codes.to(torch.int32), cb)
     with pytest.raises(ValueError, match="shapes disagree"):
         tps._check_inputs(q[:, :32].contiguous(), codes, cb)
+
+
+# ---------------------------------------------------------- route and grid plan
+@pytest.mark.parametrize("dsub", [1, 2, 3, 8, 16, 24, 32, 48, 96, 192])
+@pytest.mark.parametrize("use_bf16", [True, False])
+def test_pq_route_decodes_only_bf16_at_small_dsub(dsub, use_bf16):
+    """The rule is a pure function of the shapes: the decode route (tensor
+    cores) in bf16 mode at dsub ≤ DECODE_MAX_DSUB, tables otherwise; f32
+    mode always on tables.  The main path's shapes: M=192 at D=1536 (dsub 8)
+    decodes, M=16 (dsub 96) looks up."""
+    want = "decode" if use_bf16 and dsub <= tps.DECODE_MAX_DSUB else "table"
+    assert tps.pq_route(dsub, use_bf16) == want
+    assert tps.pq_route(8, True) == "decode" and tps.pq_route(96, True) == "table"
+
+
+class _Lib:
+    """The library's layout constants and a table of resident blocks per SM
+    ({(decode, qb): blocks}; a launch missing from it cannot run)."""
+
+    def __init__(self, per_sm):
+        self.per_sm = per_sm
+
+    def vq_pq_decode_queries_per_block(self):
+        return 64
+
+    def vq_pq_decode_tile_rows(self):
+        return 128
+
+    def vq_pq_table_step_rows(self):
+        return 512
+
+    def vq_pq_table_group(self):
+        return 4
+
+    def vq_merge_cap(self):
+        return 4096
+
+    def vq_pq_blocks_per_sm(self, decode, qb, m, kk, k, score_all, vec16):
+        return self.per_sm.get((decode, qb), 0)
+
+
+@pytest.mark.parametrize("fits,want", [({(0, 8): 1, (0, 4): 2, (0, 1): 3, (0, 0): 1}, 8),
+                                       ({(0, 4): 2, (0, 1): 3, (0, 0): 1}, 4),
+                                       ({(0, 1): 3, (0, 0): 1}, 1),
+                                       ({(0, 0): 1}, 0)])
+def test_plan_table_route_keeps_as_many_tables_as_fit(fits, want):
+    """8 queries' tables in shared memory where a block of them fits, else
+    4, else 1, else one query's read from global memory (qb 0)."""
+    qb, _ = tps._plan(_Lib(fits), 132, "table", 16, 256, 10, 1024, 100_000, 1)
+    assert qb == want
+
+
+def test_plan_raises_when_no_block_fits():
+    with pytest.raises(RuntimeError, match="no decode block"):
+        tps._plan(_Lib({}), 132, "decode", 192, 256, 10, 1024, 100_000, 0)
+
+
+@pytest.mark.parametrize("route", ["decode", "table"])
+@pytest.mark.parametrize("num_q", [1, 7, 65, 1024, 20000])
+@pytest.mark.parametrize("k", [0, 1, 10, 100, 128])
+def test_plan_chunks_follow_the_reported_occupancy(route, num_q, k):
+    """Chunks come from grid_chunks at the reported blocks per SM: at least
+    one and at most one a row tile; the fused kernel's lists within the
+    merge cap (one launch, or groups of cap // k lists); beyond one wave,
+    whole waves up to one chunk column; one chunk when the query blocks
+    alone fill the slots.  The score kernel (k = 0) merges nothing."""
+    sms, per_sm, n = 132, 2, 100_000
+    lib = _Lib({(1, 0): per_sm, (0, 8): per_sm})
+    qb, chunks = tps._plan(lib, sms, route, 16, 256, k, num_q, n, 1)
+    rows, per_block = (128, 64) if route == "decode" else (512, 8)
+    assert qb == (64 if route == "decode" else 8)
+    qblocks, slots = -(-num_q // per_block), sms * per_sm
+    assert 1 <= chunks <= -(-n // rows)
+    if qblocks >= slots:
+        assert chunks == 1
+    if k:
+        g = 4096 // k
+        groups = tps.merge_groups(chunks, 4096, k)
+        assert chunks * k <= 4096 or (chunks == groups * g and groups <= g)
+    blocks = qblocks * chunks
+    if blocks > slots and k == 0:  # short of whole waves by less than a chunk column
+        assert -blocks % slots < qblocks

@@ -129,6 +129,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma.cuh"
 #include "topk.cuh"
 
 namespace {
@@ -192,16 +193,6 @@ template <> struct Path<false> {
   static constexpr int SQ = kQB + 4;       // q_s[dim][query]: 16-byte rows
   static constexpr int STAGE_BYTES = KDK * (SX + SQ) * 4;
 };
-
-// float <-> unsigned int with the floats' order (for atomicMax)
-__device__ __forceinline__ unsigned int ordered_bits(float f) {
-  const unsigned int u = __float_as_uint(f);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float from_ordered_bits(unsigned int o) {
-  return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
-}
 
 // Upper bound on query qi's maximize-form score over tile t (family x metric)
 __device__ float tile_bound(const Params& p, int t, int qi) {
@@ -378,61 +369,6 @@ __device__ __forceinline__ void fetch_queries16(const Params& p, const Seg& sg, 
   }
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return (uint32_t)__cvta_generic_to_shared(ptr);
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0, uint32_t& r1, uint32_t& r2,
-                                        uint32_t& r3) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(addr));
-}
-
-// c (16 x 8, f32) += a (16 x 16, bf16, row-major) * b (16 x 8, bf16, col-major)
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// bf16 products of one stage, every k-step of 16 dims (the tiles are zero
-// past the segment's end); a_s (kTR, SA) rows, q_s (kQB, SA) queries.
-// acc[(mt * kNT + nt) * 4 + i]: m16 tile mt, n8 tile nt, accumulator i of
-// the m16n8 fragment.
-__device__ __forceinline__ void mma_stage(const __nv_bfloat16* a_s, const __nv_bfloat16* q_s,
-                                          float (&acc)[kAcc]) {
-  constexpr int SA = Path<true>::SA, KDK = Path<true>::KDK;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  // ldmatrix row addresses: A, lanes 0-15 rows 0-15 at k 0, lanes 16-31 at
-  // k 8 (a0..a3); B, lanes 0-7 / 8-15 queries 0-7 at k 0 / 8, lanes 16-31
-  // queries 8-15 (b0, b1 of two n8 tiles)
-  const uint32_t a_addr =
-      smem_u32(a_s + ((warp % kRowGroups) * 32 + (lane & 15)) * SA + (lane >> 4) * 8);
-  const uint32_t b_addr = smem_u32(
-      q_s + ((warp / kRowGroups) * kWarpQ + (lane & 7) + ((lane >> 4) << 3)) * SA +
-      ((lane >> 3) & 1) * 8);
-#pragma unroll
-  for (int ks = 0; ks < KDK / 16; ++ks) {
-    uint32_t a[2][4], b[kNT][2];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-      ldsm_x4(a_addr + (mt * 16 * SA + ks * 16) * 2, a[mt][0], a[mt][1], a[mt][2], a[mt][3]);
-#pragma unroll
-    for (int np = 0; np < kNT / 2; ++np)
-      ldsm_x4(b_addr + (np * 16 * SA + ks * 16) * 2, b[2 * np][0], b[2 * np][1],
-              b[2 * np + 1][0], b[2 * np + 1][1]);
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt)
-        mma_bf16(&acc[(mt * kNT + nt) * 4], a[mt], b[nt][0], b[nt][1]);
-  }
-}
-
 // f32 products of one stage over `width` dims: x_s (KDK, SX), q_s (KDK,
 // SQ).  acc[a * 4 + b]: query kFQ * warp + a, row lane + 32 * b.
 constexpr int kFQ = kAcc / 4;  // f32 path: queries a warp
@@ -604,7 +540,7 @@ packed_scan_kernel(const __grid_constant__ Params p) {
           if constexpr (BF16) {
             const __nv_bfloat16* a_s =
                 reinterpret_cast<const __nv_bfloat16*>(stage_s + b * P::STAGE_BYTES);
-            mma_stage(a_s, a_s + kTR * P::SA, acc);
+            mma_stage<P::SA, KDK, kRowGroups, kWarpQ>(a_s, a_s + kTR * P::SA, acc);
           } else {
             const float* x_s = reinterpret_cast<const float*>(stage_s + b * P::STAGE_BYTES);
             ffma_stage(x_s, x_s + KDK * P::SX, min(KDK, sg.ln - c0), acc);
@@ -779,10 +715,7 @@ int vq_packed_scan_topk(const float* q, void* q16, const float* qa, const float*
                         int limit, int metric,
                         int family, int norm_col, int prune, int bf16, int chunks,
                         void* stream) {
-  const int g = k >= 1 ? kMergeCap / k : 0;       // chunk lists one merge launch sorts
-  const int groups = g > 0 && chunks > g ? chunks / g : 0;  // first-level merges a query
-  if (k < 1 || k > kMaxK || k + kTR > kBuf || chunks < 1 ||
-      (groups > 0 && (chunks % g != 0 || groups > g)) ||
+  if (k < 1 || k > kMaxK || k + kTR > kBuf || !merge_shape_ok(chunks, k) ||
       nseg < 1 || nseg > kMaxSegs || n_r2 > kMaxSegs || N % kTile != 0 ||
       (metric == kL2 && n_r2 < 1) || ((tiles == nullptr) != (cnt == nullptr)) ||
       (bf16 && q16 == nullptr))
@@ -833,18 +766,7 @@ int vq_packed_scan_topk(const float* q, void* q16, const float* qa, const float*
   kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  if (groups > 0) {
-    float* mid_s = cand_s + (size_t)Q * chunks * k;
-    int* mid_i = cand_i + (size_t)Q * chunks * k;
-    merge_kernel<<<Q * groups, kThreads, 0, (cudaStream_t)stream>>>(cand_s, cand_i, mid_s,
-                                                                    mid_i, g * k, k);
-    merge_kernel<<<Q, kThreads, 0, (cudaStream_t)stream>>>(mid_s, mid_i, out_s, out_i,
-                                                           groups * k, k);
-  } else {
-    merge_kernel<<<Q, kThreads, 0, (cudaStream_t)stream>>>(cand_s, cand_i, out_s, out_i,
-                                                           chunks * k, k);
-  }
-  return (int)cudaGetLastError();
+  return (int)merge_chunks(cand_s, cand_i, out_s, out_i, Q, chunks, k, (cudaStream_t)stream);
 }
 
 }  // extern "C"

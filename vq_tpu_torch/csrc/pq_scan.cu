@@ -2,53 +2,78 @@
 //
 // Replaces vq_tpu/kernels/pallas_scan.py:
 //   pq_scan_topk_fused  (_scan_topk_kernel + fold_running_topk[_merge])
-//                        -> vq_pq_lut + vq_pq_scan_topk + vq_topk_merge
-//   pq_score_all        (_scan_kernel) -> vq_pq_lut + vq_pq_score_all
+//   pq_score_all        (_scan_kernel)
+// by two routes, each serving both functions (the wrapper picks the route
+// from the shapes, kernels/pq_scan.py::pq_route):
+//   decode  vq_pq_decode_scan: rounding pre-passes + decode_scan_kernel
+//   table   vq_pq_table_scan:  lut_kernel + table_scan_kernel
+// and, for the fused function, merge_chunks (topk.cuh).
 //
-// What they compute (the same contract as the TPU kernels): maximize-form
-// scores, 2*q.x^ - |x^|^2 for L2 or q.x^ for IP, where x^ is the PQ
-// decoding of a row's uint8 codes against codebooks (M, K <= 256, dsub).
-// Top-k results are ordered by score descending, then row id ascending;
-// empty slots hold -inf with id 0; rows at or past `limit` are skipped.
+// What they compute (the TPU kernels' contract): maximize-form scores,
+// 2*q.x^ - |x^|^2 for L2 or q.x^ for IP, where x^ is the PQ decoding of a
+// row's uint8 codes against codebooks (M, K <= 256, dsub).  bf16 mode
+// rounds queries and codebooks to bf16 and sums the products in f32, as the
+// TPU kernel feeds its MXU; f32 mode computes in f32 throughout.  Top-k
+// results are ordered by score descending, then row id ascending; empty
+// slots hold -inf with id 0; rows at or past `limit` are skipped.
 //
-// Design.  The TPU kernel decodes a tile of rows with one-hot x codebook
-// matmuls and scores it against the queries on the MXU, keeping the whole
-// stacked codebook resident in VMEM.  On the H100 that codebook (786 KB in
-// bf16 at M=16, dsub=96) is far over the 227 KB of shared memory a block
-// may use, and decoding every row to D values is D/M times more work than
-// needed.  These kernels use a per-query lookup table instead (the design
-// of the reference's CUDA searcher):
+// Decode route (bf16 mode at small dsub: M=192, dsub=8 is the case that
+// matters).  The TPU kernel's own design on the tensor cores: a block of 16
+// warps owns kQB = 64 queries x a chunk of kTR = 128-row tiles.  Pre-passes
+// round the queries (into a zero-padded (Qp, Dp) scratch) and the codebooks
+// to bf16 once a call, and tabulate the f32 squared norm of every rounded
+// codeword and of every row (sum over its codes, for L2).  A row tile's
+// codes (128 x M bytes, contiguous) are copied into shared memory with
+// 16-byte loads; each stage of 64 dims then copies every (row, 8 dims) of
+// the decoded tile from the bf16 codebook (L2-resident: D*K*2 bytes, 786 KB
+// at D=1536) into a 144-byte-stride tile, beside the block's queries, and
+// mma.sync.m16n8k16 (csrc/mma.cuh) multiplies rows (M side) by queries (N
+// side).  The stages are double-buffered: stage i+1's codewords are loaded
+// into registers while stage i's products run, one barrier a stage.  The
+// epilogue forms 2*ip - |x^|^2 (L2) or ip (IP), masks `limit`, and either
+// writes the (Q, tile) scores or admits what reaches the block's k-th and
+// the k-th any block has published (kth_g) and folds the candidates with
+// warp_merge_sorted, as the packed kernel does.  Bound: 2*Q*N*D bf16
+// operations on the tensor cores (0.32 ms at Q=1024, N=100k, D=1536);
+// the decode costs N*D*ceil(Q/64) copied values, and every warp reads its
+// fragments back with ldmatrix (96 KB a stage against 24 KB written).
 //
-//   LUT[q, m, c] = 2 * q_m . c_{m,c} - |c_{m,c}|^2     (L2)
-//                  q_m . c_{m,c}                       (IP)
-//   score(q, row) = sum_m LUT[q, m, codes[row, m]]
+// Table route (f32 mode always; bf16 mode at large dsub: M=16, dsub=96).
+// Per-query lookup tables, LUT[q, m, c] = 2*q_m.c_mc - |c_mc|^2 (L2) or
+// q_m.c_mc (IP), score = sum_m LUT[q, m, codes[row, m]].  lut_kernel builds
+// them (Q*K*D products) query-interleaved, (Q/4, M, K, 4): one 16-byte load
+// gives 4 queries' entries, a quarter of the load instructions, and bank
+// conflicts arise only within a quarter-warp.  A block of 16 warps holds
+// QB = 8 or 4 queries' tables in shared memory; where 4 tables do not fit
+// (M*K above ~13k) it holds one query's table, one entry a load, or (qb =
+// 0, M*K above ~56k) reads it from global memory; and each
+// thread scores one row per step of 512 rows, its codes read as 16-byte
+// words where M % 16 == 0 (a warp's 32 rows contiguous at M = 16).  The
+// top-k buffers hold k + 128 entries a query, so a step folds in four
+// rounds of 128 rows, each admitting rows above the block's k-th and at or
+// above the published one and merging what it admitted; most steps admit
+// no row, and one barrier shows that (the rounds run only when one does,
+// with the published k-th read anew).  Bound:
+// Q*N*M f32 adds (33.5e12 a second: the 67 TFLOP/s FP32 peak counts an FMA
+// as two) and the shared-memory loads behind them, 4 bytes a (query, row,
+// subspace) at ~30 TB/s over the card.
 //
-// 1. vq_pq_lut builds the LUT: Q*M*K*dsub FMAs, a small fraction of the
-//    scan.  In bf16 mode queries and codebooks are rounded to bf16 first
-//    and products accumulate in f32, as the TPU kernel does on the MXU.
-// 2. vq_pq_scan_topk: one block owns QB queries x one chunk of rows.  The
-//    QB queries' LUTs live in shared memory; each thread scores one row
-//    per step (M shared-memory lookups per query, one code byte per m read
-//    once for all QB queries).  A running top-k per query is kept in shared
-//    memory: a row enters a candidate buffer only if it beats the current
-//    k-th score (rows arrive in id order, so an equal score never wins),
-//    and a warp merges the buffer into the sorted list with a bitonic sort
-//    when it is non-empty.  Blocks run in parallel, so nothing carries
-//    across them: each writes its chunk's sorted top-k.
-//    When one query's table does not fit shared memory (M*K above ~56k,
-//    e.g. M > 220 at K=256), the caller passes qb = 0: each block then
-//    serves one query and reads its table from global memory (L1/L2).
-// 3. vq_topk_merge: one block per query sorts the chunks' candidates.
+// Crossover.  Per (query, row, subspace) the table route loads 4 bytes of
+// shared memory and the decode route does 2*dsub bf16 operations on the
+// tensor cores plus its share of the decode, so the table route wins at
+// large dsub and the decode route at small.  chip_smoke.py phase 3 times
+// both at dsub 8, 16, 32, 96 (D=1536, N=100k, Q=1024): decode takes ~3 ms
+// at every dsub, tables 1.4 ms at dsub 96, 2.3 at 32 and 5.7 at 16, where
+// 4 queries' tables no longer fit a block; the rule decodes at dsub <= 24.
+// f32 stays on tables: TF32 products would break the 1e-4
+// term-relative tolerance f32 scores are held to, and f32 products on the
+// CUDA cores lose to the lookups at the main path's dsub.
 //
-// What bounds it on the H100: the scan does Q*N*M shared-memory lookups
-// and adds (1.6e10 at Q=1024, N=1M, M=16); the codes (N*M bytes, 16 MB at
-// N=1M) stay in the 50 MB L2 across query blocks, so device memory is not
-// the limit.  Shared-memory load throughput is: this first kernel reads
-// codes as 32-bit words but makes no attempt at bank-conflict-free
-// lookups or at sharing one code read across more queries (later work).
-// vq_pq_score_all writes Q*N*4 bytes and is bound by those writes at
-// large N.
-//
+// The sums of both functions are the same code in the same order within a
+// route, so the fused top-k equals the top-k of pq_score_all's scores bit
+// for bit.  The wrapper sizes the grid from the resident blocks per SM the
+// library reports (vq_pq_blocks_per_sm), query blocks fastest within a
+// chunk (a chunk's codes come from device memory once for all of them).
 // Every entry point returns cudaGetLastError() after its launches; the
 // caller raises if it is not 0.  Nothing here allocates or synchronizes.
 
@@ -58,20 +83,266 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma.cuh"
 #include "topk.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;       // threads per block in every kernel
-constexpr int kSortCap = 512;       // per-query buffer: k + kThreads <= 512
-constexpr int kLutQ = 32;           // queries per LUT-build block
+constexpr int kThreads = 512;       // 16 warps in both scan kernels
+constexpr int kWarps = kThreads / 32;
+constexpr int kFoldRows = 128;      // rows one fold admits at most: buffers of k + 128
+// decode route
+constexpr int kQB = 64;             // queries a block
+constexpr int kTR = 128;            // rows a row tile
+constexpr int kKDK = 64;            // dims a stage: 4 k-steps of 16
+constexpr int kSA = kKDK + 8;       // bf16 row stride (144 B) of the stage tiles
+constexpr int kRowGroups = 4;
+constexpr int kWarpQ = kQB / (kWarps / kRowGroups);  // 16 queries a warp
+constexpr int kNT = kWarpQ / 8;
+constexpr int kAcc = 2 * kNT * 4;
+constexpr int kFQ = kAcc / 4;       // queries a thread holds scores of
+constexpr int kStageBytes = (kTR + kQB) * kSA * 2;
+constexpr int kVChunks = kTR * kKDK / 8 / kThreads;  // 8-dim value chunks a thread a stage
+constexpr int kQChunks = kQB * kKDK / 8 / kThreads;  // 8-dim query chunks a thread a stage
+constexpr int kMaxStagedM = 256;    // a row tile's codes in shared memory up to 32 KB
+// table route
+constexpr int kG = 4;               // queries interleaved in a table entry (a float4)
+constexpr int kLutQ = 32;           // queries per table-build block
 constexpr int kLutD = 32;           // dsub chunk staged in shared memory
+constexpr int kLutThreads = 256;
 
-// ---------------------------------------------------------------- LUT build
-// grid (ceil(Q / kLutQ), M); thread c owns codeword c of subquantizer m.
+// ---------------------------------------------------------------- decode route
+struct DecodeParams {
+  const __nv_bfloat16* q16;   // (Qp, Dp) rounded queries, zero-padded
+  const __nv_bfloat16* cb16;  // (M, K, dsub) rounded codebooks
+  const float* rn;            // (N,) |x^|^2 of each row (L2)
+  const uint8_t* codes;       // (N, M)
+  float* out;                 // score_all: (Q, N)
+  float* cand_s;              // fused: (Q, chunks, k)
+  int* cand_i;
+  unsigned int* kth_g;        // fused: (Q,) published k-th scores (ordered ints)
+  int Q, N, M, K, dsub, D, Dp, k, limit, l2, tiles_per_chunk, staged, codes16, vec8;
+};
+
+// grid (Qp): q16[j, d] = bf16(q[j, d]) for j < Q and d < D, 0 up to Dp
+__global__ void round_pq_queries_kernel(const float* __restrict__ q,
+                                        __nv_bfloat16* __restrict__ q16, int Q, int D, int Dp) {
+  const int j = blockIdx.x;
+  for (int d = threadIdx.x; d < Dp; d += blockDim.x)
+    q16[(size_t)j * Dp + d] = __float2bfloat16(j < Q && d < D ? q[(size_t)j * D + d] : 0.f);
+}
+
+// grid (ceil(M*K / 256)): cb16 = bf16(cb); cnorm[m, c] = sum_d bf16(cb[m, c, d])^2
+__global__ void round_codebook_kernel(const float* __restrict__ cb,
+                                      __nv_bfloat16* __restrict__ cb16,
+                                      float* __restrict__ cnorm, int MK, int dsub) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= MK) return;
+  float s = 0.f;
+  for (int d = 0; d < dsub; ++d) {
+    const __nv_bfloat16 h = __float2bfloat16(cb[(size_t)e * dsub + d]);
+    cb16[(size_t)e * dsub + d] = h;
+    const float v = __bfloat162float(h);
+    s += v * v;
+  }
+  cnorm[e] = s;
+}
+
+// grid (ceil(N / 256)): rn[n] = sum_m cnorm[m, codes[n, m]], m ascending
+__global__ void row_norms_kernel(const uint8_t* __restrict__ codes,
+                                 const float* __restrict__ cnorm, float* __restrict__ rn, int N,
+                                 int M, int K) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  const uint8_t* c = codes + (size_t)n * M;
+  float s = 0.f;
+  for (int m = 0; m < M; ++m) s += __ldg(cnorm + m * K + c[m]);
+  rn[n] = s;
+}
+
+// grid (ceil(Q / kQB), chunks); SCORE_ALL writes out (Q, N), else each
+// (query, chunk) sorted top-k to cand_s / cand_i, empty slots (-inf, INT_MAX)
+template <bool SCORE_ALL>
+__global__ void __launch_bounds__(kThreads, 1)
+decode_scan_kernel(const __grid_constant__ DecodeParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* stage_s = smem;
+  uint8_t* codes_s = stage_s + 2 * kStageBytes;
+  const int kbuf = p.k + kFoldRows;
+  float* buf_s = reinterpret_cast<float*>(codes_s + (p.staged ? (kTR * p.M + 15) / 16 * 16 : 0));
+  int* buf_i = reinterpret_cast<int*>(buf_s + kQB * kbuf);
+  __shared__ float thr[kQB];
+  __shared__ float gthr[kQB];
+  __shared__ int n_cand[kQB];
+  __shared__ float term_s[kTR];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = blockIdx.x * kQB;
+  const int nq = min(kQB, p.Q - q0);
+  const int end = SCORE_ALL ? p.N : min(p.N, p.limit);
+  const int t_begin = blockIdx.y * p.tiles_per_chunk;
+  const int t_end = min((end + kTR - 1) / kTR, t_begin + p.tiles_per_chunk);
+  if (!SCORE_ALL) {
+    for (int i = tid; i < kQB * kbuf; i += kThreads) {
+      buf_s[i] = -INFINITY;
+      buf_i[i] = INT_MAX;
+    }
+    if (tid < kQB) {
+      thr[tid] = -INFINITY;
+      n_cand[tid] = 0;
+    }
+  }
+
+  uint4 raw[kVChunks], qh[kQChunks];
+  for (int t = t_begin; t < t_end; ++t) {
+    const int row0 = t * kTR;
+    const int nrows = min(kTR, p.N - row0);  // rows with codes
+    if (p.staged) {  // the tile's codes, contiguous; rows past N read codeword 0
+      const int nbytes = nrows * p.M;
+      const uint8_t* src = p.codes + (size_t)row0 * p.M;
+      int i0 = 0;
+      if (p.codes16) {
+        for (int i = tid; i < nbytes / 16; i += kThreads)
+          reinterpret_cast<uint4*>(codes_s)[i] = __ldg(reinterpret_cast<const uint4*>(src) + i);
+        i0 = nbytes / 16 * 16;
+      }
+      for (int i = i0 + tid; i < nbytes; i += kThreads) codes_s[i] = src[i];
+      for (int i = nbytes + tid; i < kTR * p.M; i += kThreads) codes_s[i] = 0;
+    }
+    __syncthreads();
+    // the rows' norms stay in flight during the stages
+    const float term = p.l2 && tid < nrows ? __ldg(p.rn + row0 + tid) : 0.f;
+    // stage (c0): dims [c0, c0 + 64) of rows and queries, into registers
+    auto fetch = [&](int c0) {
+#pragma unroll
+      for (int i = 0; i < kVChunks; ++i) {
+        const int c = tid + i * kThreads, r = c >> 3, d0 = c0 + 8 * (c & 7);
+        const uint8_t* crow = p.codes + (size_t)(row0 + min(r, nrows - 1)) * p.M;
+        auto code = [&](int m) -> int {
+          return p.staged ? codes_s[r * p.M + m] : __ldg(crow + m);
+        };
+        raw[i] = make_uint4(0u, 0u, 0u, 0u);
+        if (p.vec8) {  // dsub % 8 == 0: 8 dims of one codeword, 16-byte aligned
+          if (d0 < p.D) {
+            const int m = d0 / p.dsub;
+            raw[i] = __ldg(reinterpret_cast<const uint4*>(
+                p.cb16 + ((size_t)m * p.K + code(m)) * p.dsub + (d0 - m * p.dsub)));
+          }
+        } else {
+          uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const int d = d0 + e;
+            if (d < p.D) {
+              const int m = d / p.dsub;
+              const uint32_t h = __bfloat16_as_ushort(
+                  p.cb16[((size_t)m * p.K + code(m)) * p.dsub + (d - m * p.dsub)]);
+              w[e >> 1] |= h << (16 * (e & 1));
+            }
+          }
+          raw[i] = make_uint4(w[0], w[1], w[2], w[3]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kQChunks; ++i) {
+        const int c = tid + i * kThreads;
+        qh[i] = __ldg(reinterpret_cast<const uint4*>(p.q16 + (size_t)(q0 + (c >> 3)) * p.Dp + c0) +
+                      (c & 7));
+      }
+    };
+    auto store = [&](int b) {
+      __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(stage_s + b * kStageBytes);
+      __nv_bfloat16* q_s = a_s + kTR * kSA;
+#pragma unroll
+      for (int i = 0; i < kVChunks; ++i) {
+        const int c = tid + i * kThreads;
+        *reinterpret_cast<uint4*>(a_s + (c >> 3) * kSA + (c & 7) * 8) = raw[i];
+      }
+#pragma unroll
+      for (int i = 0; i < kQChunks; ++i) {
+        const int c = tid + i * kThreads;
+        *reinterpret_cast<uint4*>(q_s + (c >> 3) * kSA + (c & 7) * 8) = qh[i];
+      }
+    };
+    float acc[kAcc];
+#pragma unroll
+    for (int a = 0; a < kAcc; ++a) acc[a] = 0.f;
+    fetch(0);
+    store(0);
+    __syncthreads();
+    // software pipeline: load stage s+1 into registers, run stage s's
+    // products, store stage s+1 into the other buffer; one barrier a stage
+    const int nst = p.Dp / kKDK;
+    for (int s = 0; s < nst; ++s) {
+      const __nv_bfloat16* a_s =
+          reinterpret_cast<const __nv_bfloat16*>(stage_s + (s & 1) * kStageBytes);
+      if (s + 1 < nst) {
+        fetch((s + 1) * kKDK);
+        mma_stage<kSA, kKDK, kRowGroups, kWarpQ>(a_s, a_s + kTR * kSA, acc);
+        store((s + 1) & 1);
+      } else {
+        mma_stage<kSA, kKDK, kRowGroups, kWarpQ>(a_s, a_s + kTR * kSA, acc);
+      }
+      __syncthreads();
+    }
+    if (tid < kTR) term_s[tid] = term;
+    if (!SCORE_ALL && tid < nq) gthr[tid] = from_ordered_bits(__ldcg(p.kth_g + q0 + tid));
+    __syncthreads();
+    // epilogue: a thread's kFQ queries (a) x 4 rows (bb) of its accumulators
+#pragma unroll
+    for (int a = 0; a < kFQ; ++a) {
+      const int j = (warp / kRowGroups) * kWarpQ + (a >> 1) * 8 + 2 * (lane & 3) + (a & 1);
+      const float thr_j = SCORE_ALL ? 0.f : thr[j], g_j = SCORE_ALL ? 0.f : gthr[j];
+#pragma unroll
+      for (int bb = 0; bb < 4; ++bb) {
+        const int r = (warp % kRowGroups) * 32 + (bb >> 1) * 16 + (lane >> 2) + (bb & 1) * 8;
+        const int row = row0 + r;
+        const float ip = acc[((bb >> 1) * kNT + (a >> 1)) * 4 + (bb & 1) * 2 + (a & 1)];
+        const float sc = p.l2 ? 2.f * ip - term_s[r] : ip;
+        if (SCORE_ALL) {
+          if (j < nq && row < p.N) p.out[(size_t)(q0 + j) * p.N + row] = sc;
+        } else if (j < nq && row < end && sc > thr_j && sc >= g_j) {
+          const int slot = p.k + atomicAdd(&n_cand[j], 1);
+          buf_s[j * kbuf + slot] = sc;
+          buf_i[j * kbuf + slot] = row;
+        }
+      }
+    }
+    if (!SCORE_ALL) {
+      __syncthreads();
+      for (int j = warp; j < nq; j += kWarps) {
+        const int nc = n_cand[j];
+        if (nc > 0) {
+          const float kth = warp_merge_sorted(buf_s + j * kbuf, buf_i + j * kbuf, p.k, nc, lane);
+          if (lane == 0) {
+            thr[j] = kth;
+            n_cand[j] = 0;
+            if (kth > -INFINITY) atomicMax(p.kth_g + q0 + j, ordered_bits(kth));
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if (!SCORE_ALL) {
+    __syncthreads();  // the buffers' initial fill, where the block had no tile
+    const int chunks = gridDim.y;
+    for (int i = tid; i < nq * p.k; i += kThreads) {
+      const int j = i / p.k, r = i % p.k;
+      const size_t o = ((size_t)(q0 + j) * chunks + blockIdx.y) * p.k + r;
+      p.cand_s[o] = buf_s[j * kbuf + r];
+      p.cand_i[o] = buf_i[j * kbuf + r];
+    }
+  }
+}
+
+// ----------------------------------------------------------------- table route
+// grid (ceil(Q / kLutQ), M); thread c owns codeword c of subquantizer m and
+// writes entry (q, m, c) to lut[((q / g * M + m) * K + c) * g + q % g]: g = 4,
+// one float4 a (m, c) for 4 queries, or g = 1, one table a query
 __global__ void lut_kernel(const float* __restrict__ q, const float* __restrict__ cb,
-                           float* __restrict__ lut, int Q, int D, int M, int K,
-                           int dsub, int l2, int bf16) {
+                           float* __restrict__ lut, int Q, int D, int M, int K, int dsub,
+                           int l2, int bf16, int g) {
   __shared__ float cb_s[256][kLutD + 1];   // +1: no bank conflicts on rows
   __shared__ float q_s[kLutQ][kLutD];
   const int m = blockIdx.y;
@@ -103,222 +374,327 @@ __global__ void lut_kernel(const float* __restrict__ q, const float* __restrict_
     }
     __syncthreads();
   }
-  if (c < K) {
-    for (int r = 0; r < nq; ++r) {
-      float v = l2 ? 2.f * acc[r] - c2 : acc[r];
-      lut[((size_t)(q0 + r) * M + m) * K + c] = v;
-    }
-  }
-}
-
-// Copy QB queries' LUTs (contiguous in global memory) into shared memory.
-__device__ __forceinline__ void load_lut(float* lut_s, const float* lut, int q0, int nq,
-                                         int M, int K) {
-  const size_t n = (size_t)nq * M * K;
-  const float* src = lut + (size_t)q0 * M * K;
-  for (size_t i = threadIdx.x; i < n; i += blockDim.x) lut_s[i] = src[i];
-}
-
-// Score one row against QB queries from the shared LUTs.  When M % 4 == 0
-// (and the codes are 4-byte aligned) the row's codes are read as 32-bit
-// words, a quarter of the load instructions of byte reads.
-template <int QB>
-__device__ __forceinline__ void score_row(float (&acc)[QB], const float* lut_s,
-                                          const uint8_t* __restrict__ code, int M, int K,
-                                          bool words) {
+  if (c >= K) return;
+  if (g == kG) {
+    float4* lut4 = reinterpret_cast<float4*>(lut);
 #pragma unroll
-  for (int j = 0; j < QB; ++j) acc[j] = 0.f;
-  const int stride = M * K;
-  if (words) {
-    const uint32_t* w = reinterpret_cast<const uint32_t*>(code);
-    for (int m4 = 0; m4 < (M >> 2); ++m4) {
-      const uint32_t v = __ldg(w + m4);
+    for (int j = 0; j < kLutQ / kG; ++j) {
+      if (kG * j >= nq) break;
+      float v[kG];
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int off = (4 * m4 + b) * K + ((v >> (8 * b)) & 0xFF);
-#pragma unroll
-        for (int j = 0; j < QB; ++j) acc[j] += lut_s[j * stride + off];
-      }
+      for (int i = 0; i < kG; ++i) v[i] = l2 ? 2.f * acc[kG * j + i] - c2 : acc[kG * j + i];
+      lut4[((size_t)(q0 / kG + j) * M + m) * K + c] = make_float4(v[0], v[1], v[2], v[3]);
     }
     return;
   }
-  for (int m = 0; m < M; ++m) {
-    const int off = m * K + code[m];
 #pragma unroll
-    for (int j = 0; j < QB; ++j) acc[j] += lut_s[j * stride + off];
+  for (int r = 0; r < kLutQ; ++r)
+    if (r < nq) lut[((size_t)(q0 + r) * M + m) * K + c] = l2 ? 2.f * acc[r] - c2 : acc[r];
+}
+
+struct TableParams {
+  const float* lut;       // QB >= 4: (ceil(Q / 4), M, K, 4), else (Q, M, K)
+  const uint8_t* codes;   // (N, M)
+  float* out;             // score_all: (Q, N)
+  float* cand_s;          // fused: (Q, chunks, k)
+  int* cand_i;
+  unsigned int* kth_g;    // fused: (Q,) published k-th scores (ordered ints)
+  int Q, N, M, K, k, limit, rows_per_chunk;
+};
+
+// Score one row against the block's QB queries: acc[j] = sum_m entry (m,
+// code m) of query j, m ascending; the tables are 4-query interleaved (one
+// float4 an entry) for QB >= 4, one query's for QB = 1.  VEC 16: codes read
+// as 16-byte words.
+template <int QB, bool SMEM, int VEC>
+__device__ __forceinline__ void score_row(float (&acc)[QB], const float* lut,
+                                          const uint8_t* __restrict__ code, int M, int K) {
+#pragma unroll
+  for (int j = 0; j < QB; ++j) acc[j] = 0.f;
+  const int gstride = M * K;
+  auto add = [&](int m, uint32_t c) {
+    const int off = m * K + (int)c;
+    if constexpr (QB >= kG) {
+      const float4* lut4 = reinterpret_cast<const float4*>(lut);
+#pragma unroll
+      for (int g = 0; g < QB / kG; ++g) {
+        const float4 v = SMEM ? lut4[g * gstride + off] : __ldg(lut4 + g * gstride + off);
+        acc[kG * g] += v.x;
+        acc[kG * g + 1] += v.y;
+        acc[kG * g + 2] += v.z;
+        acc[kG * g + 3] += v.w;
+      }
+    } else {
+      acc[0] += SMEM ? lut[off] : __ldg(lut + off);
+    }
+  };
+  if (VEC == 16) {
+    const uint4* w = reinterpret_cast<const uint4*>(code);
+    for (int m16 = 0; m16 < (M >> 4); ++m16) {
+      const uint4 v = __ldg(w + m16);
+      const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int b = 0; b < 16; ++b) add(16 * m16 + b, (words[b >> 2] >> (8 * (b & 3))) & 0xFFu);
+    }
+  } else {
+    for (int m = 0; m < M; ++m) add(m, __ldg(code + m));
   }
 }
 
-// ------------------------------------------------------------ score-all scan
-// grid (ceil(Q / QB), chunks); out (Q, N) maximize-form scores.  SMEM_LUT:
-// the QB tables are copied to shared memory, else read from global memory.
-template <int QB, bool SMEM_LUT>
-__global__ void score_all_kernel(const float* __restrict__ lut,
-                                 const uint8_t* __restrict__ codes,
-                                 float* __restrict__ out, int Q, int N, int M, int K,
-                                 int rows_per_chunk, bool words) {
-  extern __shared__ float smem[];
-  const int q0 = blockIdx.x * QB;
-  const int nq = min(QB, Q - q0);
-  if (SMEM_LUT) load_lut(smem, lut, q0, nq, M, K);
-  const float* lut_s = SMEM_LUT ? smem : lut + (size_t)q0 * M * K;
-  __syncthreads();
-  const int row_begin = blockIdx.y * rows_per_chunk;
-  const int row_end = min(N, row_begin + rows_per_chunk);
-  for (int row = row_begin + threadIdx.x; row < row_end; row += blockDim.x) {
-    float acc[QB];
-    score_row<QB>(acc, lut_s, codes + (size_t)row * M, M, K, words);
-#pragma unroll
-    for (int j = 0; j < QB; ++j)
-      if (j < nq) out[(size_t)(q0 + j) * N + row] = acc[j];
-  }
-}
-
-// ------------------------------------------------------- fused scan + top-k
-// grid (ceil(Q / QB), chunks).  Writes each (query, chunk) sorted top-k to
-// cand_s / cand_i (Q, chunks, k); empty slots are (-inf, INT_MAX).
-template <int QB, bool SMEM_LUT>
-__global__ void scan_topk_kernel(const float* __restrict__ lut,
-                                 const uint8_t* __restrict__ codes,
-                                 float* __restrict__ cand_s, int* __restrict__ cand_i,
-                                 int Q, int N, int M, int K, int k, int limit,
-                                 int rows_per_chunk, bool words) {
-  extern __shared__ float smem[];
-  __shared__ int n_cand[QB];
+// grid (ceil(Q / QB), chunks); QB queries' tables in shared memory (SMEM),
+// else one query's read from global memory.  SCORE_ALL writes out (Q, N),
+// else each (query, chunk) sorted top-k to cand_s / cand_i.
+template <int QB, bool SMEM, int VEC, bool SCORE_ALL>
+__global__ void __launch_bounds__(kThreads, 1)
+table_scan_kernel(const __grid_constant__ TableParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* lut_s = reinterpret_cast<float*>(smem);
+  const int kbuf = p.k + kFoldRows;
+  float* buf_s = lut_s + (SMEM ? (size_t)QB * p.M * p.K : 0);
+  int* buf_i = reinterpret_cast<int*>(buf_s + QB * kbuf);
   __shared__ float thr[QB];
-  float* buf_s = smem + (SMEM_LUT ? (size_t)QB * M * K : 0);
-  int* buf_i = reinterpret_cast<int*>(buf_s + QB * kSortCap);
+  __shared__ float gthr[QB];
+  __shared__ int n_cand[QB];
 
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int q0 = blockIdx.x * QB;
-  const int nq = min(QB, Q - q0);
-  const int chunk = blockIdx.y;
-  const int chunks = gridDim.y;
-  if (SMEM_LUT) load_lut(smem, lut, q0, nq, M, K);
-  const float* lut_s = SMEM_LUT ? smem : lut + (size_t)q0 * M * K;
-  for (int i = threadIdx.x; i < QB * kSortCap; i += blockDim.x) {
-    buf_s[i] = -INFINITY;
-    buf_i[i] = INT_MAX;
+  const int nq = min(QB, p.Q - q0);
+  constexpr int G = QB >= kG ? kG : 1;  // queries interleaved in an entry
+  const float* src = p.lut + (size_t)q0 * p.M * p.K;
+  if (SMEM) {  // the block's tables (whole groups of G queries)
+    const size_t n = (size_t)(nq + G - 1) / G * G * p.M * p.K;
+    if (n % 4 == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+      for (size_t i = tid; i < n / 4; i += kThreads)
+        reinterpret_cast<float4*>(lut_s)[i] = __ldg(reinterpret_cast<const float4*>(src) + i);
+    } else {
+      for (size_t i = tid; i < n; i += kThreads) lut_s[i] = __ldg(src + i);
+    }
   }
-  if (threadIdx.x < QB) {
-    n_cand[threadIdx.x] = 0;
-    thr[threadIdx.x] = -INFINITY;
+  const float* lut = SMEM ? lut_s : src;
+  if (!SCORE_ALL) {
+    for (int i = tid; i < QB * kbuf; i += kThreads) {
+      buf_s[i] = -INFINITY;
+      buf_i[i] = INT_MAX;
+    }
+    if (tid < QB) {
+      thr[tid] = -INFINITY;
+      gthr[tid] = -INFINITY;
+      n_cand[tid] = 0;
+    }
   }
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row_begin = chunk * rows_per_chunk;
-  const int row_end = min(min(N, limit), row_begin + rows_per_chunk);
-  for (int base = row_begin; base < row_end; base += blockDim.x) {
-    const int row = base + threadIdx.x;
-    if (row < row_end) {
-      float acc[QB];
-      score_row<QB>(acc, lut_s, codes + (size_t)row * M, M, K, words);
+  const int end = SCORE_ALL ? p.N : min(p.N, p.limit);
+  const int row_begin = blockIdx.y * p.rows_per_chunk;
+  const int row_end = min(end, row_begin + p.rows_per_chunk);
+  for (int base = row_begin; base < row_end; base += kThreads) {
+    const int row = base + tid;
+    float acc[QB];
+    if (row < row_end) score_row<QB, SMEM, VEC>(acc, lut, p.codes + (size_t)row * p.M, p.M, p.K);
+    if (SCORE_ALL) {
 #pragma unroll
-      for (int j = 0; j < QB; ++j) {
-        if (j < nq && acc[j] > thr[j]) {
-          const int slot = k + atomicAdd(&n_cand[j], 1);
-          buf_s[j * kSortCap + slot] = acc[j];
-          buf_i[j * kSortCap + slot] = row;
+      for (int j = 0; j < QB; ++j)
+        if (j < nq && row < row_end) p.out[(size_t)(q0 + j) * p.N + row] = acc[j];
+      continue;
+    }
+    // a row is a candidate when it beats the block's k-th and reaches the
+    // published one (gthr: a lower bound on the final k-th however stale)
+    auto admits = [&](int j) { return j < nq && acc[j] > thr[j] && acc[j] >= gthr[j]; };
+    bool any = false;
+    if (row < row_end) {
+#pragma unroll
+      for (int j = 0; j < QB; ++j) any |= admits(j);
+    }
+    if (!__syncthreads_or(any)) continue;  // most steps: one barrier
+    if (tid < nq) gthr[tid] = from_ordered_bits(__ldcg(p.kth_g + q0 + tid));
+    __syncthreads();
+    // four rounds of kFoldRows rows: admit, then merge when any row was
+    // admitted
+    for (int f = 0; f < kThreads / kFoldRows; ++f) {
+      bool added = false;
+      if (tid / kFoldRows == f && row < row_end) {
+#pragma unroll
+        for (int j = 0; j < QB; ++j) {
+          if (admits(j)) {
+            const int slot = p.k + atomicAdd(&n_cand[j], 1);
+            buf_s[j * kbuf + slot] = acc[j];
+            buf_i[j * kbuf + slot] = row;
+            added = true;
+          }
         }
       }
-    }
-    __syncthreads();
-    // warp j merges query j's candidates into its sorted list (QB <= 8 warps)
-    if (warp < nq) {
-      const int nc = n_cand[warp];
-      if (nc > 0) {
-        const float kth = warp_merge_candidates(buf_s + warp * kSortCap,
-                                                buf_i + warp * kSortCap, k, nc, lane);
-        if (lane == 0) {
-          thr[warp] = kth;
-          n_cand[warp] = 0;
+      if (!__syncthreads_or(added)) continue;
+      for (int j = warp; j < nq; j += kWarps) {
+        const int nc = n_cand[j];
+        if (nc > 0) {
+          const float kth = warp_merge_sorted(buf_s + j * kbuf, buf_i + j * kbuf, p.k, nc, lane);
+          if (lane == 0) {
+            thr[j] = kth;
+            n_cand[j] = 0;
+            if (kth > -INFINITY) atomicMax(p.kth_g + q0 + j, ordered_bits(kth));
+          }
         }
       }
+      __syncthreads();
     }
-    __syncthreads();
   }
-  for (int i = threadIdx.x; i < nq * k; i += blockDim.x) {
-    const int j = i / k, r = i % k;
-    const size_t o = ((size_t)(q0 + j) * chunks + chunk) * k + r;
-    cand_s[o] = buf_s[j * kSortCap + r];
-    cand_i[o] = buf_i[j * kSortCap + r];
+  if (!SCORE_ALL) {
+    const int chunks = gridDim.y;
+    for (int i = tid; i < nq * p.k; i += kThreads) {
+      const int j = i / p.k, r = i % p.k;
+      const size_t o = ((size_t)(q0 + j) * chunks + blockIdx.y) * p.k + r;
+      p.cand_s[o] = buf_s[j * kbuf + r];
+      p.cand_i[o] = buf_i[j * kbuf + r];
+    }
   }
 }
 
-template <int QB, bool SMEM_LUT>
-cudaError_t launch_scan(const float* lut, const uint8_t* codes, float* cand_s, int* cand_i,
-                        float* out, int Q, int N, int M, int K, int k, int limit,
-                        int chunks, cudaStream_t stream) {
-  const int rows_per_chunk = (N + chunks - 1) / chunks;
-  const bool words = (M & 3) == 0 && (reinterpret_cast<uintptr_t>(codes) & 3) == 0;
-  dim3 grid((Q + QB - 1) / QB, chunks);
-  size_t lut_bytes = SMEM_LUT ? (size_t)QB * M * K * sizeof(float) : 0;
-  if (out != nullptr) {
-    cudaFuncSetAttribute(score_all_kernel<QB, SMEM_LUT>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lut_bytes);
-    score_all_kernel<QB, SMEM_LUT><<<grid, kThreads, lut_bytes, stream>>>(
-        lut, codes, out, Q, N, M, K, rows_per_chunk, words);
-    return cudaGetLastError();
-  }
-  size_t smem = lut_bytes + (size_t)QB * kSortCap * (sizeof(float) + sizeof(int));
-  cudaFuncSetAttribute(scan_topk_kernel<QB, SMEM_LUT>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  scan_topk_kernel<QB, SMEM_LUT><<<grid, kThreads, smem, stream>>>(
-      lut, codes, cand_s, cand_i, Q, N, M, K, k, limit, rows_per_chunk, words);
-  return cudaGetLastError();
+// ------------------------------------------------------------------- launches
+size_t decode_smem(int M, int k, bool score_all) {
+  return 2 * (size_t)kStageBytes + (M <= kMaxStagedM ? (size_t)(kTR * M + 15) / 16 * 16 : 0) +
+         (score_all ? 0 : (size_t)kQB * (k + kFoldRows) * (sizeof(float) + sizeof(int)));
 }
 
-// qb = queries per block with their tables in shared memory; 0 = one query
-// per block, table read from global memory
-template <typename... A>
-cudaError_t dispatch_qb(int qb, A... args) {
-  switch (qb) {
-    case 8: return launch_scan<8, true>(args...);
-    case 4: return launch_scan<4, true>(args...);
-    case 2: return launch_scan<2, true>(args...);
-    case 1: return launch_scan<1, true>(args...);
-    case 0: return launch_scan<1, false>(args...);
-    default: return cudaErrorInvalidValue;
+size_t table_smem(int qb, int M, int K, int k, bool score_all) {
+  return (size_t)qb * M * K * sizeof(float) +
+         (score_all ? 0 : (size_t)max(qb, 1) * (k + kFoldRows) * (sizeof(float) + sizeof(int)));
+}
+
+// The table kernel instance of a launch (null: no such instance)
+template <bool SCORE_ALL>
+const void* table_kernel(int qb, int vec16) {
+  switch (qb * 2 + (vec16 ? 1 : 0)) {
+    case 16: return (const void*)table_scan_kernel<8, true, 1, SCORE_ALL>;
+    case 17: return (const void*)table_scan_kernel<8, true, 16, SCORE_ALL>;
+    case 8: return (const void*)table_scan_kernel<4, true, 1, SCORE_ALL>;
+    case 9: return (const void*)table_scan_kernel<4, true, 16, SCORE_ALL>;
+    case 2: return (const void*)table_scan_kernel<1, true, 1, SCORE_ALL>;
+    case 3: return (const void*)table_scan_kernel<1, true, 16, SCORE_ALL>;
+    case 0: return (const void*)table_scan_kernel<1, false, 1, SCORE_ALL>;
+    case 1: return (const void*)table_scan_kernel<1, false, 16, SCORE_ALL>;
+    default: return nullptr;
   }
+}
+
+// Set the launch's dynamic shared memory; resident blocks per SM at it (0:
+// the launch cannot run)
+int occupancy(const void* kernel, size_t smem) {
+  int n = 0;
+  cudaError_t err = kernel == nullptr ? cudaErrorInvalidValue
+                                      : cudaFuncSetAttribute(kernel,
+                                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                             (int)smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads, smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // the caller sees 0, not a stale error at its next launch
+    return 0;
+  }
+  return n;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared-memory layout constants, read by the Python wrapper to size QB
-// and the number of chunks.
-int vq_sort_cap() { return kSortCap; }
+// Layout constants, read by the Python wrapper.
 int vq_merge_cap() { return kMergeCap; }
+int vq_pq_decode_queries_per_block() { return kQB; }
+int vq_pq_decode_tile_rows() { return kTR; }
+int vq_pq_decode_stage_dims() { return kKDK; }
+int vq_pq_table_step_rows() { return kThreads; }
+int vq_pq_table_group() { return kG; }
 
-// q (Q, D) f32, cb (M, K, dsub) f32 -> lut (Q, M, K) f32
-int vq_pq_lut(const float* q, const float* cb, float* lut, int Q, int D, int M, int K,
-              int dsub, int l2, int bf16, void* stream) {
-  if (K > 256 || M * dsub != D) return (int)cudaErrorInvalidValue;
-  dim3 grid((Q + kLutQ - 1) / kLutQ, M);
-  lut_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(q, cb, lut, Q, D, M, K, dsub, l2,
-                                                          bf16);
-  return (int)cudaGetLastError();
+// Resident blocks per SM of a launch (the wrapper sizes the grid from it);
+// 0 if it cannot run.  decode: the decode route (qb, K and vec16 unused);
+// else the table route with qb = 8 / 4 / 1 queries' tables in shared memory
+// or 0 (one query's, global memory); vec16: 16-byte code loads.
+int vq_pq_blocks_per_sm(int decode, int qb, int M, int K, int k, int score_all, int vec16) {
+  if (decode) {
+    const void* kern = score_all ? (const void*)decode_scan_kernel<true>
+                                 : (const void*)decode_scan_kernel<false>;
+    return occupancy(kern, decode_smem(M, k, score_all));
+  }
+  const void* kern = score_all ? table_kernel<true>(qb, vec16) : table_kernel<false>(qb, vec16);
+  return occupancy(kern, table_smem(qb, M, K, k, score_all));
 }
 
-// lut (Q, M, K), codes (N, M) u8 -> out (Q, N) f32
-int vq_pq_score_all(const float* lut, const uint8_t* codes, float* out, int Q, int N, int M,
-                    int K, int qb, int chunks, void* stream) {
-  return (int)dispatch_qb(qb, lut, codes, (float*)nullptr, (int*)nullptr, out, Q, N, M, K, 0,
-                          0, chunks, (cudaStream_t)stream);
-}
-
-// lut (Q, M, K), codes (N, M) u8 -> cand (Q, chunks, k) -> out (Q, k)
-int vq_pq_scan_topk(const float* lut, const uint8_t* codes, float* cand_s, int* cand_i,
-                    float* out_s, int* out_i, int Q, int N, int M, int K, int k, int limit,
-                    int qb, int chunks, void* stream) {
-  if (k < 1 || k > kMaxK || chunks * k > kMergeCap) return (int)cudaErrorInvalidValue;
-  cudaError_t err = dispatch_qb(qb, lut, codes, cand_s, cand_i, (float*)nullptr, Q, N, M, K,
-                                k, limit, chunks, (cudaStream_t)stream);
+// Decode route.  q (Q, D), cb (M, K, dsub) f32, codes (N, M) u8; scratch
+// q16 (Qp, Dp) bf16 (Qp = Q rounded up to vq_pq_decode_queries_per_block(),
+// Dp = D rounded up to vq_pq_decode_stage_dims()), cb16 (M, K, dsub) bf16,
+// cnorm (M, K) f32, rn (N,) f32 (L2).  out != null: out (Q, N) scores;
+// else cand (Q, chunks + merge groups, k) -> out_s / out_i (Q, k), kth_g
+// (Q,) u32 set by the caller to vq_ordered_neg_inf().
+int vq_pq_decode_scan(const float* q, const float* cb, const uint8_t* codes, void* q16,
+                      void* cb16, float* cnorm, float* rn, float* out, float* cand_s,
+                      int* cand_i, float* out_s, int* out_i, unsigned int* kth_g, int Q, int N,
+                      int M, int K, int dsub, int k, int limit, int l2, int chunks,
+                      void* stream) {
+  const bool score_all = out != nullptr;
+  if (K < 1 || K > 256 || M < 1 || dsub < 1 || Q < 1 || chunks < 1 ||
+      (!score_all && !merge_shape_ok(chunks, k)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  DecodeParams p;
+  p.q16 = static_cast<const __nv_bfloat16*>(q16);
+  p.cb16 = static_cast<const __nv_bfloat16*>(cb16);
+  p.rn = rn; p.codes = codes; p.out = out; p.cand_s = cand_s; p.cand_i = cand_i;
+  p.kth_g = kth_g;
+  p.Q = Q; p.N = N; p.M = M; p.K = K; p.dsub = dsub; p.D = M * dsub;
+  p.Dp = (p.D + kKDK - 1) / kKDK * kKDK;
+  p.k = score_all ? 0 : k; p.limit = limit; p.l2 = l2;
+  p.tiles_per_chunk = ((N + kTR - 1) / kTR + chunks - 1) / chunks;
+  p.staged = M <= kMaxStagedM;
+  p.codes16 = (reinterpret_cast<uintptr_t>(codes) & 15) == 0;
+  p.vec8 = dsub % 8 == 0;
+  const int qblocks = (Q + kQB - 1) / kQB;
+  round_pq_queries_kernel<<<qblocks * kQB, 256, 0, st>>>(q, static_cast<__nv_bfloat16*>(q16), Q,
+                                                        p.D, p.Dp);
+  round_codebook_kernel<<<(M * K + 255) / 256, 256, 0, st>>>(
+      cb, static_cast<__nv_bfloat16*>(cb16), cnorm, M * K, dsub);
+  if (l2 && N > 0) row_norms_kernel<<<(N + 255) / 256, 256, 0, st>>>(codes, cnorm, rn, N, M, K);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  merge_kernel<<<Q, kThreads, 0, (cudaStream_t)stream>>>(cand_s, cand_i, out_s, out_i,
-                                                         chunks * k, k);
-  return (int)cudaGetLastError();
+  const size_t smem = decode_smem(M, p.k, score_all);
+  const auto kernel = score_all ? decode_scan_kernel<true> : decode_scan_kernel<false>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  kernel<<<dim3(qblocks, chunks), kThreads, smem, st>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || score_all) return (int)err;
+  return (int)merge_chunks(cand_s, cand_i, out_s, out_i, Q, chunks, k, st);
+}
+
+// Table route.  q (Q, D), cb (M, K, dsub) f32, codes (N, M) u8; scratch lut
+// (ceil(Q / 4) * 4, M, K) f32; qb = 8 / 4 / 1 queries' tables in shared
+// memory, 0 one query's in global memory; vec16: codes 16-byte aligned and
+// M % 16 == 0.  out / cand / kth_g as vq_pq_decode_scan.
+int vq_pq_table_scan(const float* q, const float* cb, const uint8_t* codes, float* lut,
+                     float* out, float* cand_s, int* cand_i, float* out_s, int* out_i,
+                     unsigned int* kth_g, int Q, int N, int M, int K, int dsub, int k, int limit,
+                     int l2, int bf16, int qb, int vec16, int chunks, void* stream) {
+  const bool score_all = out != nullptr;
+  const void* kern = score_all ? table_kernel<true>(qb, vec16) : table_kernel<false>(qb, vec16);
+  if (K < 1 || K > 256 || M < 1 || dsub < 1 || Q < 1 || chunks < 1 || kern == nullptr ||
+      (vec16 && (M % 16 != 0 || (reinterpret_cast<uintptr_t>(codes) & 15) != 0)) ||
+      (!score_all && !merge_shape_ok(chunks, k)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  lut_kernel<<<dim3((Q + kLutQ - 1) / kLutQ, M), kLutThreads, 0, st>>>(
+      q, cb, lut, Q, M * dsub, M, K, dsub, l2, bf16, qb >= kG ? kG : 1);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  TableParams p;
+  p.lut = lut;
+  p.codes = codes; p.out = out; p.cand_s = cand_s; p.cand_i = cand_i; p.kth_g = kth_g;
+  p.Q = Q; p.N = N; p.M = M; p.K = K; p.k = score_all ? 0 : k; p.limit = limit;
+  p.rows_per_chunk = ((N + kThreads - 1) / kThreads + chunks - 1) / chunks * kThreads;
+  const size_t smem = table_smem(qb, M, K, p.k, score_all);
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const int per = max(qb, 1);
+  void* args[] = {&p};
+  err = cudaLaunchKernel(kern, dim3((Q + per - 1) / per, chunks), dim3(kThreads), args, smem, st);
+  if (err != cudaSuccess || score_all) return (int)err;
+  return (int)merge_chunks(cand_s, cand_i, out_s, out_i, Q, chunks, k, st);
 }
 
 }  // extern "C"

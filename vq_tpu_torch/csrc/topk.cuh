@@ -1,7 +1,8 @@
 // Exact top-k device code shared by the scan kernels (pq_scan.cu,
 // packed_scan.cu): the (score desc, id asc) order, a bitonic sort, the warp
-// merge of a per-query candidate buffer into its running top-k, and the
-// kernel that merges the per-chunk top-k lists of one query.
+// merges of a per-query candidate buffer into its running top-k, the kernel
+// that merges the per-chunk top-k lists of one query, and the host code
+// that launches it once or twice.
 //
 // Running top-k protocol (per query, in shared memory): s[0, k) holds the
 // sorted top-k so far, (-inf, INT_MAX) where empty; a row is admitted only
@@ -24,6 +25,17 @@ constexpr int kMergeCap = 4096;  // chunks * k the merge kernel sorts
 
 __device__ __forceinline__ float rnd(float v, int bf16) {
   return bf16 ? __bfloat162float(__float2bfloat16(v)) : v;
+}
+
+// float <-> unsigned int with the floats' order (atomicMax on the published
+// k-th scores of a scan, kth_g)
+__device__ __forceinline__ unsigned int ordered_bits(float f) {
+  const unsigned int u = __float_as_uint(f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float from_ordered_bits(unsigned int o) {
+  return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
 }
 
 // (sa, ia) ranks before (sb, ib): score descending, then id ascending
@@ -199,6 +211,37 @@ __global__ void merge_kernel(const float* __restrict__ cand_s, const int* __rest
     out_s[(size_t)q * k + r] = v;
     out_i[(size_t)q * k + r] = v > -INFINITY ? id[r] : 0;
   }
+}
+
+constexpr int kMergeThreads = 512;
+
+// Whether merge_chunks takes (chunks, k): one launch sorts chunks * k <=
+// kMergeCap candidates a query, or the lists merge in groups of g =
+// kMergeCap / k first (chunks a multiple of g, at most g groups).
+inline bool merge_shape_ok(int chunks, int k) {
+  if (k < 1 || k > kMaxK || chunks < 1) return false;
+  const int g = kMergeCap / k;
+  return chunks <= g || (chunks % g == 0 && chunks / g <= g);
+}
+
+// A scan's (Q, chunks, k) sorted chunk lists -> out (Q, k), in one merge
+// launch, or, past the cap, in two: groups of g lists first into cand's
+// tail (Q, chunks / g, k), so cand then holds Q * (chunks + chunks / g) * k
+// entries.  Returns cudaGetLastError().
+inline cudaError_t merge_chunks(float* cand_s, int* cand_i, float* out_s, int* out_i, int Q,
+                                int chunks, int k, cudaStream_t stream) {
+  const int g = kMergeCap / k;
+  if (chunks > g) {
+    const int groups = chunks / g;
+    float* mid_s = cand_s + (size_t)Q * chunks * k;
+    int* mid_i = cand_i + (size_t)Q * chunks * k;
+    merge_kernel<<<Q * groups, kMergeThreads, 0, stream>>>(cand_s, cand_i, mid_s, mid_i, g * k,
+                                                           k);
+    merge_kernel<<<Q, kMergeThreads, 0, stream>>>(mid_s, mid_i, out_s, out_i, groups * k, k);
+  } else {
+    merge_kernel<<<Q, kMergeThreads, 0, stream>>>(cand_s, cand_i, out_s, out_i, chunks * k, k);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace

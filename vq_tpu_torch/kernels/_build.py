@@ -97,11 +97,15 @@ def build_library() -> Path:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "vq_sort_cap": [],
     "vq_merge_cap": [],
-    "vq_pq_lut": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "vq_pq_score_all": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "vq_pq_scan_topk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "vq_pq_decode_queries_per_block": [],
+    "vq_pq_decode_tile_rows": [],
+    "vq_pq_decode_stage_dims": [],
+    "vq_pq_table_step_rows": [],
+    "vq_pq_table_group": [],
+    "vq_pq_blocks_per_sm": [_I] * 7,
+    "vq_pq_decode_scan": [_P] * 13 + [_I] * 9 + [_P],
+    "vq_pq_table_scan": [_P] * 10 + [_I] * 12 + [_P],
     "vq_packed_queries_per_block": [],
     "vq_packed_max_segments": [],
     "vq_ordered_neg_inf": [],

@@ -7,10 +7,12 @@ adc_l2(q, codes) = ‖q − x̂‖², x̂ = decode(codes).  Scores are kept in
 maximize form (2·q·x̂ − ‖x̂‖² for L2, q·x̂ for IP, q·x̂/‖x‖ for NIP) and
 turned back into the metric's value by ``_finalize``.
 
-Routing of ``scan_codes_topk`` (as in the JAX package, with the TPU's VMEM
-gate replaced by the card's): a CUDA tensor with K ≤ 256 (uint8 codes) and
-metric L2 or IP goes to the hand-written kernels of ``kernels/pq_scan.py`` — k ≤ 32 to the fused scan + top-k,
-k > 32 to the score kernel over row tiles followed by ``_streaming_topk``.
+Routing of ``scan_codes_topk``: a CUDA tensor with K ≤ 256 (uint8 codes)
+and metric L2 or IP goes to the hand-written kernels of
+``kernels/pq_scan.py`` — k ≤ 128 to the fused scan + top-k, k > 128 to the
+score kernel over row tiles followed by ``_streaming_topk``.  (The JAX
+package sends k > 32 to its score kernel because its TPU fold is linear in
+k; on the card the fused kernel is the faster route at k=100, PERF.md.)
 Everything else (NIP, the CPU) runs the plain PyTorch scan below.
 
 Every top-k here is exact and ordered by score descending, then id
@@ -28,13 +30,12 @@ import torch
 from vq_tpu_torch.core.config import Metric
 from vq_tpu_torch._device import as_f32, bf16_supported, round_bf16
 from vq_tpu_torch.kernels.pq_scan import (  # noqa: F401  (decode_pq: public here too)
+    MAX_K,
     decode_pq,
     pq_scan_topk_fused,
     pq_score_all,
 )
 from vq_tpu_torch.kernels.topk import ordered_topk
-
-FUSED_MAX_K = 32  # k above this takes the two-pass score kernel (vq_tpu/kernels/adc.py:204)
 
 
 def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -103,6 +104,24 @@ def _nip_norms(norms, n: int, device) -> torch.Tensor:
     return as_f32(norms, device)[:n]
 
 
+def _score_kernel_topk(queries, codes, codebooks, k: int, l2: bool, use_bf16: bool,
+                       limit: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two-pass route on the card: the score kernel over row tiles, then
+    ``_streaming_topk`` → maximize-form (Q, k) scores and ids.  One big tile
+    while the (Q, tile) f32 score buffer stays ≤ 1.5 GB: a single top-k over
+    all columns beats per-tile merges."""
+    n, num_q = codes.shape[0], queries.shape[0]
+    cap = max(16384, (int(1.5e9) // (4 * num_q)) // 512 * 512)
+    tile = min(-(-n // 512) * 512, cap)
+
+    def score_tile(start):
+        ct = codes[start:start + tile].contiguous()
+        s = pq_score_all(queries, ct, codebooks, l2=l2, use_bf16=use_bf16)
+        return _col_mask(s, start, limit)
+
+    return _streaming_topk(score_tile, n, num_q, k, tile)
+
+
 def scan_codes_topk(
     queries,
     codes: torch.Tensor,
@@ -136,23 +155,13 @@ def scan_codes_topk(
     use_kernel = (dev.type == "cuda" and metric in (Metric.L2, Metric.IP)
                   and codes.dtype == torch.uint8 and kk <= 256)
     l2 = metric == Metric.L2
-    if use_kernel and k <= FUSED_MAX_K:
+    if use_kernel and k <= MAX_K:  # else the two-pass score kernel
         outs, outi = pq_scan_topk_fused(queries, codes.contiguous(), codebooks, k, l2=l2,
                                         limit=limit, use_bf16=use_bf16)
         return _finalize(outs, outi, metric, q_sq)
 
     if use_kernel:
-        # one big tile while the (Q, tile) f32 score buffer stays ≤ 1.5 GB:
-        # a single top-k over all columns beats per-tile merges
-        cap = max(16384, (int(1.5e9) // (4 * num_q)) // 512 * 512)
-        tile = min(-(-n // 512) * 512, cap)
-
-        def score_tile(start):
-            ct = codes[start:start + tile].contiguous()
-            s = pq_score_all(queries, ct, codebooks, l2=l2, use_bf16=use_bf16)
-            return _col_mask(s, start, limit)
-
-        scores, idx = _streaming_topk(score_tile, n, num_q, k, tile)
+        scores, idx = _score_kernel_topk(queries, codes, codebooks, k, l2, use_bf16, limit)
         return _finalize(scores, idx, metric, q_sq)
 
     tile = min(tile_rows, max(1, n))
