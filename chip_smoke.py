@@ -69,9 +69,29 @@ Phases (any failure exits non-zero; nothing is caught):
    RaBitQ B=2 at nprobe=50.  nprobe=4096 must equal the unmasked kernel bit
    for bit; the gather kernel against its plain version at the path's
    masks; the gather launch counter must move; a torch.profiler breakdown.
+   The coarse pass runs twice and must give bit-equal centroids (phase 4
+   likewise fits PQ M=16 twice: bit-equal codebooks).
+11. The other quantizers on the flat index at full width: OPQ(M=16, B=8)
+   on phase 4's corpus (fit, encode, k=10 and 100 through the fused PQ
+   kernel, whose launch counter must move; the f32 kernel against its plain
+   version on a 100k-row slice with the rotated queries; recall and MSE
+   beside PQ M=16's); RankAware bpd=2 on phase 7's corpus (the packed
+   kernel, prune ids = dense ids, the scanned fraction); SQ and LVQ at 8
+   bits through the generic plain scan, where no kernel may launch.
+12. The residual IVF index (``bench.py:543-573`` on the port) on phase 10's
+   corpus and coarse pass: IvfQuantizedIndex(SAQ bpd=2) and (PQ M=192),
+   build time, nprobe 50 / 200 at Q=256, k=100 (union strategy), recall
+   and the batch's union fraction; windows = union where separated at Q=8;
+   a profile; then IvfPackedFlatIndex(RankAware bpd=2) at nprobe=50, whose
+   gather launches must move.
+
+Phases 6 and 9 hold a fifth configuration, RankAware bpd=2 (one segment
+per bit width, "perdim" and "values", no per-row scale: scale_col −1), and
+phase 6 its FFD packing once.
 
 The line before the last is a JSON object of the kernels (launches in
-phases 4, 7-8 and 10; errors and times from phases 3, 6 and 9; each
+phases 4 and 11 (fused), 7, 8 and 11 (packed), 10 and 12 (gather); errors
+and times from phases 3, 6 and 9; each
 kernel's bound, the least time the card could take for the timed call);
 the card's name and power limit are printed before it, and the last line
 is ``{"ok": true, "device": {...}}``.
@@ -524,6 +544,13 @@ def phase_main(torch, dev, n=1_000_000, d=1536, nq=1024, profile=True):
             seed=0)  # no device: the quantizer takes the corpus's
     _, t_fit = wall_s(torch, lambda: pq.fit(x))
     require(pq.device == x.device, f"quantizer on {pq.device}, corpus on {x.device}")
+    # the Lloyd step sums in a fixed order: one seed, one set of codebooks
+    again, t_fit2 = wall_s(torch, lambda: PQ(pq.cfg, seed=0).fit(x))
+    require(torch.equal(again.params.codebooks, pq.params.codebooks),
+            "two PQ fits from one seed gave different codebooks")
+    log(f"[phase 4] PQ M=16 fitted twice from seed 0: codebooks bit-equal ({t_fit:.3f} s, "
+        f"{t_fit2:.3f} s)")
+    del again
     index = FlatQuantizedIndex(pq, SearchConfig(use_bf16=True))
     _, t_enc = wall_s(torch, lambda: index.fit(x))
     require(index.codes.device == x.device and pq.params.codebooks.device == x.device,
@@ -647,10 +674,13 @@ def packed_tol(torch, a):
 def packed_configs(torch, x, q, norms, tile_cache=False):
     """(tag, args(metric, k, use_bf16, prune, limit) → packed_scan_topk
     arguments for the queries q, dequant kinds, quantizer, packed corpus)
-    for the four configurations of phases 6 and 9; SAQ's cache is
-    norm-ordered, or order-preserving with ``tile_cache`` (the IVF one)."""
-    from vq_tpu_torch import RaBitQConfig, SAQConfig
+    for the five configurations of phases 6 and 9 (SAQ uniform and lloyd,
+    RaBitQ B=2 and 6, RankAware lloyd: one segment per bit width, no per-row
+    scale); SAQ's cache is norm-ordered, or order-preserving with
+    ``tile_cache`` (the IVF one); the others keep the rows' order."""
+    from vq_tpu_torch import RaBitQConfig, RankAwareConfig, SAQConfig
     from vq_tpu_torch.methods import rabitq as rb
+    from vq_tpu_torch.methods import rankaware as ra
     from vq_tpu_torch.methods import saq as sq
 
     out = []
@@ -674,7 +704,21 @@ def packed_configs(torch, x, q, norms, tile_cache=False):
                                        num_valid=limit, use_bf16=bf16, prune=prune)
         out.append((f"RaBitQ B={bits}", args, {rb._packed_segspec(1, bits).dequant}, m,
                     packed))
+    m = ra.RankAware(RankAwareConfig(bits_per_dim=2.0, codebook="lloyd")).fit(x)
+    packed = ra.prepare_packed(m.params, m.bits, m.layout, m.compress(x), "dense", norms=norms)
+
+    def args(metric, k, bf16, prune, limit=None, m=m, packed=packed):
+        return ra.packed_scan_args(m.params, m.bits, q, packed, k, metric, num_valid=limit,
+                                   use_bf16=bf16, prune=prune)
+    segs = ra.packed_segspecs(m.params, m.bits)[0]
+    out.append((f"RankAware lloyd bpd=2 {rankaware_segments(segs)}", args,
+                {s.dequant for s in segs}, m, packed))
     return out
+
+
+def rankaware_segments(segs) -> str:
+    """A RankAware layout's segments as (bits, length, kind) runs."""
+    return "segments " + " ".join(f"({s.bits},{s.ln},{s.dequant})" for s in segs)
 
 
 def time_packed(torch, a, what):
@@ -826,8 +870,8 @@ def phase_packed_kernels(torch, dev, results, n=100_000, d=1024, nq=256):
     x, q, _ = packed_corpus(torch, n, d, nq, seed=11, dev=dev, lognormal=True)
     norms = torch.linalg.norm(x, dim=1)
     configs = packed_configs(torch, x, q, norms)
-    log(f"[phase 6] corpus N={n} (lognormal rows) D={d} Q={nq}; 4 configurations fitted, "
-        f"encoded and packed in {time.perf_counter() - t0:.3f} s")
+    log(f"[phase 6] corpus N={n} (lognormal rows) D={d} Q={nq}; {len(configs)} configurations "
+        f"fitted, encoded and packed in {time.perf_counter() - t0:.3f} s")
     kind_launches = {"uniform": 0, "perdim": 0, "shared": 0, "values": 0}
     r = results.setdefault("packed_scan_topk", {"max_abs_err": 0.0, "times": {}, "bounds": {}})
     for tag, args, kinds, m, packed in configs:
@@ -863,6 +907,11 @@ def phase_packed_kernels(torch, dev, results, n=100_000, d=1024, nq=256):
                 require(torch.equal(bpi, bi), f"packed bf16 prune {what}: differs from off")
         for kind in kinds:
             kind_launches[kind] += pk.packed_scan_topk.launches - before
+        require_launched({tag: pk.packed_scan_topk.launches - before}, "a configuration never "
+                                                                        "launched the kernel")
+        if tag.startswith("RankAware"):  # no per-row scale: scale_col −1 in every segment
+            require(all(sp.scale_col == -1 for sp in args(Metric.L2, 10, True, False)["segs"]),
+                    f"{tag}: a segment carries a scale column")
         (tk, tp, bnd), line = time_packed(torch, args(Metric.L2, 10, True, False), "L2 k=10")
         a = args(Metric.L2, 100, True, False)
         t100, b100 = cuda_ms(torch, lambda: pk.packed_scan_topk(**a)), packed_bound(torch, a)
@@ -877,12 +926,38 @@ def phase_packed_kernels(torch, dev, results, n=100_000, d=1024, nq=256):
         log(f"[phase 6] {tag} times (CUDA events, median of 5): {line}; L2 k=100 bf16 kernel "
             f"{t100:.3f} ms, bound {b100[0]:.4f} ms ({b100[1]})")
     require_launched(kind_launches, "a dequant kind was never launched")
+    rankaware_ffd(torch, dev, x, q, norms, *configs[-1][3:])
     tag, args, kinds, m, packed = configs[0]
     phase_packed_edges(torch, dev, q, m, packed, m.compress(x[:3000]))
     torch.cuda.synchronize()
     log(f"[phase 6] packed kernel checks and edge cases ok ({time.perf_counter() - t0:.3f} s)")
     del x, q, norms, configs
     torch.cuda.empty_cache()
+
+
+def rankaware_ffd(torch, dev, x, q, norms, m, packed):
+    """RankAware with FFD (byte-aligned) packing of the same codes: its scan
+    layout equals the dense one's (both unpack to the same indices), and
+    the kernel holds its plain version (f32, L2, k=10)."""
+    from vq_tpu_torch import Metric
+    from vq_tpu_torch.core.ffd import ffd_layout
+    from vq_tpu_torch.kernels import packed_scan as pk
+    from vq_tpu_torch.methods import rankaware as ra
+
+    mf = ra.RankAware(dataclasses.replace(m.cfg, packing="ffd"), device=dev)
+    mf.params, mf.bits, mf.layout, mf._dim = m.params, m.bits, ffd_layout(m.bits), m._dim
+    codes = mf.compress(x)
+    pf = ra.prepare_packed(mf.params, mf.bits, mf.layout, codes, "ffd", norms=norms)
+    require(all(torch.equal(a, b) for a, b in zip(pf.words, packed.words)),
+            "RankAware FFD: scan layout differs from the dense packing's")
+    a = ra.packed_scan_args(mf.params, mf.bits, q, pf, 10, Metric.L2, use_bf16=False)
+    ks, ki = pk.packed_scan_topk(**a)
+    rs, ri = pk.packed_scan_topk_plain(**{**a, "k": 11})
+    err, n_sep, _ = check_topk_f32(torch, ks, ki, rs, ri, 10, packed_tol(torch, a),
+                                   "RankAware FFD f32 L2 k=10")
+    log(f"[phase 6] RankAware FFD packing: {codes.shape[1]} code bytes/row (dense "
+        f"{m.code_bytes_per_vector():.0f}); scan layout = dense's; kernel vs plain f32 L2 k=10 "
+        f"max_abs_err={err:.3e}, ids = plain at {n_sep} separated queries")
 
 
 # ---------------------------------------------------------------- phase 7
@@ -1115,13 +1190,16 @@ def phase_gather_kernels(torch, dev, results, n=100_000, d=1024, nq=256):
                 f"masked-in pairs {max_frac:.3f}; mask_cap never changes the result; lowest "
                 f"bf16 recall@10 vs plain bf16 {worst_rec:.4f}")
         log(line)
-        if not r["times"]:  # times on the first configuration, L2 k=10
+        # times on the first configuration (the kernels line's) and on
+        # RankAware's, L2 k=10
+        if not r["times"] or tag.startswith("RankAware"):
+            key = "RankAware " if r["times"] else ""
             for mname in ("25% random", "all"):
                 (tk, tp, bnd), line = time_packed(
                     torch, {**args(Metric.L2, 10, True, False), "tile_mask": masks[mname]},
                     f"{mname} mask, gather")
                 log(f"[phase 9] {tag} times (CUDA events, median of 5): {line}")
-                r["times"][mname], r["bounds"][mname] = (tk, tp), bnd
+                r["times"][key + mname], r["bounds"][key + mname] = (tk, tp), bnd
             a = args(Metric.L2, 10, True, False)
             log(f"[phase 9] {tag} dense kernel (CUDA events, median of 5): bf16 "
                 f"{cuda_ms(torch, lambda: pk.packed_scan_topk(**a)):.3f} ms, f32 "
@@ -1183,7 +1261,7 @@ def fullrank_corpus(torch, n, d, nq, seed, dev, rank=None, csize=100, spread=1.0
     return x, qv / torch.linalg.norm(qv, dim=1, keepdim=True)
 
 
-def ivf_search(torch, index, q, nprobe, k, gt, what):
+def ivf_search(torch, index, q, nprobe, k, gt, what, phase="phase 10"):
     """One search setting: the result, its checks, QPS from
     ``sustained_search_s`` and the masked-in tile fraction."""
     index.ivf_cfg = dataclasses.replace(index.ivf_cfg, nprobe=nprobe)
@@ -1196,7 +1274,7 @@ def ivf_search(torch, index, q, nprobe, k, gt, what):
     require(bool((np.diff(scores, axis=1) >= 0).all()), f"{what} not ascending")
     sec = index.sustained_search_s(q, k, reps=5, outer=3)
     recalls = ", ".join(f"recall@{r} {recall(gt, ids, r):.4f}" for r in (1, 10, 100))
-    log(f"[phase 10] {what}: {sec * 1e3:.3f} ms/search (sustained, CUDA events), QPS "
+    log(f"[{phase}] {what}: {sec * 1e3:.3f} ms/search (sustained, CUDA events), QPS "
         f"{nq / sec:.1f}; tiles masked in {tiles}/{nb} = {tiles / nb:.4f}; {recalls}")
     return ids, scores
 
@@ -1204,7 +1282,8 @@ def ivf_search(torch, index, q, nprobe, k, gt, what):
 def phase_ivf_main(torch, dev, n=1_048_576, d=1536, nq=256, k_cl=4096, nprobes=(50, 200),
                    nq_small=8, profile=True):
     """bench.py:478-651 on the port (module docstring); nprobe = k_cl is the
-    full probe."""
+    full probe.  Returns the gather launches and what phase 12 reuses: the
+    corpus, queries, ground truth and the coarse pass."""
     from vq_tpu_torch import IVFConfig, KMeansConfig, Metric, RaBitQConfig, SAQConfig
     from vq_tpu_torch import SearchConfig
     from vq_tpu_torch._device import bf16_supported, make_generator
@@ -1226,8 +1305,17 @@ def phase_ivf_main(torch, dev, n=1_048_576, d=1536, nq=256, k_cl=4096, nprobes=(
         f"({x.numel() * 4 / 1e9:.2f} GB); ground truth k={k} {t_gt:.3f} s")
     kmc = KMeansConfig(iters=10, max_points_per_centroid=64)
     cap = min(n, max(200_000, kmc.max_points_per_centroid * k_cl))
-    cents, t_km = wall_s(torch, lambda: kmeans(make_generator(kmc.seed, dev),
-                                               host_sample_rows(x, cap, kmc.seed), k_cl, kmc))
+    def coarse_pass():
+        return kmeans(make_generator(kmc.seed, dev), host_sample_rows(x, cap, kmc.seed), k_cl,
+                      kmc)
+
+    cents, t_km = wall_s(torch, coarse_pass)
+    cents2, t_km2 = wall_s(torch, coarse_pass)
+    require(torch.equal(cents, cents2), "two coarse passes from one seed gave different "
+                                        "centroids")
+    log(f"[phase 10] coarse k-means K={k_cl} run twice from seed {kmc.seed}: centroids "
+        f"bit-equal; {t_km:.3f} s, {t_km2:.3f} s")
+    del cents2
     asn, t_asn = wall_s(torch, lambda: chunked_assign(x, cents, chunk_rows_for_bytes(d)))
     pk.reset_launch_counts()
     saq = sq.SAQ(SAQConfig(bits_per_dim=2.0, use_pca=True))  # no device: the corpus's
@@ -1309,9 +1397,342 @@ def phase_ivf_main(torch, dev, n=1_048_576, d=1536, nq=256, k_cl=4096, nprobes=(
         }
         log(f"[profile] IVF stages nprobe={nprobes[0]} Q={nq} (CUDA events, median of 5): "
             + "; ".join(f"{name} {cuda_ms(torch, fn):.3f} ms" for name, fn in stages.items()))
-    del x, q, index, rindex, cents, asn
+    del index, rindex
     torch.cuda.empty_cache()
-    return launches["packed_scan_topk_gather"]
+    return launches["packed_scan_topk_gather"], dict(x=x, q=q, gt=gt, cents=cents, asn=asn,
+                                                     kmc=kmc)
+
+
+# ---------------------------------------------------------------- phase 11
+def phase_quantizers(torch, dev, n=1_000_000, d=1536, nq=1024, n_ra=1_048_576, d_ra=1024,
+                     nq_ra=256, opq_iters=10, opq_train=100_000, profile=True):
+    """The other quantizers on the flat index at full width: OPQ(M=16, B=8)
+    on phase 4's corpus through the fused PQ kernel (beside PQ M=16);
+    RankAware bpd=2 on phase 7's corpus through the packed kernel, prune on
+    and off; SQ and LVQ at 8 bits through the generic plain scan (no
+    kernel).  Profiles of OPQ's and RankAware's k=10 searches.  Returns the
+    launches of OPQ's and RankAware's searches."""
+    from vq_tpu_torch import KMeansConfig, LVQConfig, Metric, OPQConfig, PQConfig
+    from vq_tpu_torch import RankAwareConfig, SearchConfig, SQConfig
+    from vq_tpu_torch.data.sampling import host_sample_rows
+    from vq_tpu_torch.index.flat import FlatQuantizedIndex
+    from vq_tpu_torch.kernels import packed_scan as pk
+    from vq_tpu_torch.kernels import pq_scan as ps
+    from vq_tpu_torch.kernels.adc import exact_topk
+    from vq_tpu_torch.methods import rankaware as ra
+    from vq_tpu_torch.methods.lvq import LVQ
+    from vq_tpu_torch.methods.opq import OPQ
+    from vq_tpu_torch.methods.pq import PQ
+    from vq_tpu_torch.methods.sq import SQ
+
+    launches = {}
+    x, q = powerlaw_corpus(torch, n, d, nq, seed=0, dev=dev)
+    gt = exact_topk(q, x, 100)[1].cpu().numpy()
+    km = KMeansConfig(iters=20)
+    ps.reset_launch_counts()
+    opq = OPQ(OPQConfig(16, 8, opq_iters=opq_iters, kmeans=km), seed=0)
+    _, t_fit = wall_s(torch, lambda: opq.fit(x))
+    index = FlatQuantizedIndex(opq, SearchConfig(use_bf16=True))
+    _, t_enc = wall_s(torch, lambda: index.fit(x))
+    rot = opq.params.rotation
+    r64 = rot.to(torch.float64)
+    orth = float((r64.T @ r64 - torch.eye(d, dtype=torch.float64, device=dev)).abs().max())
+    require(orth < 1e-5, f"OPQ rotation not orthogonal: max |RᵀR − I| = {orth}")
+    log(f"[phase 11] OPQ M=16 B=8 N={n} D={d}: fit {t_fit:.3f} s (train cap {opq_train}, "
+        f"opq_iters {opq_iters}), index fit (encode) {t_enc:.3f} s; max |RᵀR − I| = {orth:.2e}")
+    opq_ids = {k: timed_search(torch, index, q, k, gt, "phase 11 OPQ") for k in (10, 100)}
+    if profile:
+        profile_search(torch, index, q, ks=(10,), tag=" OPQ")
+    launches["pq_scan_topk_fused"] = ps.pq_scan_topk_fused.launches
+    require_launched(launches, "OPQ's search never launched the fused kernel")
+    qr, cb = q @ rot, opq.params.codebooks
+    sl = index.codes[:100_000].contiguous()
+    ks, ki = ps.pq_scan_topk_fused(qr, sl, cb, 10, use_bf16=False)
+    rs, ri = ps.pq_scan_topk_fused_plain(qr, sl, cb, 11, True, None, False)
+    err, n_sep, _ = check_topk_f32(torch, ks, ki, rs, ri, 10, f32_tol(torch, qr, cb),
+                                   "OPQ fused f32 (rotated queries, 100k rows)")
+    pq = PQ(PQConfig(16, 8, km), seed=0)
+    pindex = FlatQuantizedIndex(pq, SearchConfig(use_bf16=True)).fit(x)
+    pq_ids = {k: pindex.search_with_scores(q, k)[0] for k in (10, 100)}
+    sample = host_sample_rows(x, opq_train, 0)
+    log(f"[phase 11] OPQ fused kernel vs plain (f32, rotated queries, 100k rows, k=10): "
+        f"max_abs_err={err:.3e}, ids = plain at {n_sep}/{nq} separated queries; launches "
+        f"{launches}")
+    log(f"[phase 11] OPQ vs PQ M=16 on this corpus: recall@10 {recall(gt, opq_ids[10], 10):.4f}"
+        f" vs {recall(gt, pq_ids[10], 10):.4f}, recall@100 {recall(gt, opq_ids[100], 100):.4f} "
+        f"vs {recall(gt, pq_ids[100], 100):.4f}; reconstruction MSE on the training sample "
+        f"{opq.reconstruction_mse(sample):.6e} vs {pq.reconstruction_mse(sample):.6e}")
+    del x, q, index, pindex, sample, qr, sl
+    torch.cuda.empty_cache()
+
+    x, q, _ = packed_corpus(torch, n_ra, d_ra, nq_ra, 0, dev)
+    gt = exact_topk(q, x, 100)[1].cpu().numpy()
+    pk.reset_launch_counts()
+    ram = ra.RankAware(RankAwareConfig(bits_per_dim=2.0))
+    _, t_fit = wall_s(torch, lambda: ram.fit(x))
+    index = FlatQuantizedIndex(ram, SearchConfig(use_bf16=True))
+    _, t_index = wall_s(torch, lambda: index.fit(x))
+    cache = index._scan_cache
+    segs = ra.packed_segspecs(ram.params, ram.bits)[0]
+    log(f"[phase 11] RankAware bpd=2 N={n_ra} D={d_ra}: {rankaware_segments(segs)}, "
+        f"{ram.code_bytes_per_vector():.0f} code bytes/row; fit {t_fit:.3f} s; index fit "
+        f"(encode + norms + pack) {t_index:.3f} s; prune hint {cache.prune_hint}")
+    out = {}
+    for k in (10, 100):
+        out[k] = timed_search(torch, index, q, k, gt, "phase 11 RankAware")
+        ms = cuda_ms(torch, lambda: index.search_with_scores(q, k), reps=3, warmup=1)
+        pr = {p_: ra.scan_topk(ram.params, ram.bits, ram.layout, "dense", q, index.codes, k,
+                               Metric.L2, packed_cache=cache, prune_tiles=p_) for p_ in (True,
+                                                                                        False)}
+        require(torch.equal(pr[True][1], pr[False][1]), f"RankAware k={k}: prune ids differ "
+                                                        f"from dense")
+        _, _, cnt = ra._packed_scan(ram.params, ram.bits, q, cache, k, Metric.L2, prune=True)
+        units = pk.prune_units(nq_ra, cache.factors.shape[1], dev)
+        log(f"[phase 11] RankAware k={k}: {ms:.3f} ms/search (CUDA events, median of 3); prune "
+            f"ids = dense ids; {int(cnt)}/{units} (query block, tile) pairs scanned = "
+            f"{int(cnt) / units:.4f}")
+    require(bool((out[10] == out[100][:, :10]).all()), "RankAware k=10 and k=100 disagree")
+    if profile:
+        profile_search(torch, index, q, ks=(10,), tag=" RankAware")
+    launches["packed_scan_topk"] = pk.packed_scan_topk.launches
+    require_launched({"packed_scan_topk": launches["packed_scan_topk"]},
+                     "RankAware's search never launched the packed kernel")
+    del index, cache
+    torch.cuda.empty_cache()
+    for name, quant in (("SQ 8 bits", SQ(SQConfig(8))), ("LVQ 8 bits", LVQ(LVQConfig(8)))):
+        ps.reset_launch_counts()
+        pk.reset_launch_counts()
+        index, t_index = wall_s(torch, lambda: FlatQuantizedIndex(
+            quant, SearchConfig(use_bf16=True)).fit(x))
+        timed_search(torch, index, q, 10, gt, f"phase 11 {name}")
+        ms = cuda_ms(torch, lambda: index.search_with_scores(q, 10), reps=3, warmup=1)
+        kernels = (ps.pq_scan_topk_fused.launches + ps.pq_score_all.launches
+                   + pk.packed_scan_topk.launches + pk.packed_scan_topk.gather_launches)
+        require(kernels == 0, f"{name}: a scan kernel launched on the generic path")
+        log(f"[phase 11] {name}: index fit {t_index:.3f} s, {quant.code_bytes_per_vector():.0f} "
+            f"code bytes/row; k=10 {ms:.3f} ms/search (CUDA events, median of 3) through the "
+            f"generic plain scan (no kernel: the JAX package leaves it to XLA)")
+        del index
+    del x, q
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------- phase 12
+def union_fraction(torch, index, q, nprobe) -> float:
+    """Rows in the batch's union of probed lists / all rows."""
+    from vq_tpu_torch.kernels.kmeans import pairwise_sqdist_xc
+    from vq_tpu_torch.kernels.topk import ordered_topk
+
+    probe = ordered_topk(-pairwise_sqdist_xc(q, index.centroids), nprobe)[1]
+    union = torch.zeros((index.centroids.shape[0],), dtype=torch.bool, device=q.device)
+    union[probe.reshape(-1).long()] = True
+    return int(index.sizes[union].sum()) / index.num_rows
+
+
+def probe_ceiling(torch, index, q, gt, nprobe, r) -> float:
+    """The share of the true top-r that lies in the lists each query
+    probes: the recall@r an exact scan of those lists' raw rows would
+    reach, so recall below it is the quantizer's, not the probes'."""
+    from vq_tpu_torch.kernels.kmeans import pairwise_sqdist_xc
+    from vq_tpu_torch.kernels.topk import ordered_topk
+
+    probe = ordered_topk(-pairwise_sqdist_xc(q, index.centroids), nprobe)[1]
+    cells = index._assignment[torch.as_tensor(gt[:, :r], device=q.device).long()]
+    return float((cells[..., None] == probe[:, None, :]).any(-1).float().mean())
+
+
+def probed_exact_topk(torch, index, q, nprobe, k):
+    """Plain witness of a residual-IVF search: each query's probed lists
+    read row by row, every row rebuilt by global id (``decompress``: the
+    residual decode plus its centroid) and scored by the direct difference
+    ‖q − x̂‖², top-k ascending → (ids (Q, k) uint32, scores (Q, k) f32) as
+    numpy.  It shares no window, mask or score algebra with the scans."""
+    from vq_tpu_torch.kernels.kmeans import pairwise_sqdist_xc
+    from vq_tpu_torch.kernels.topk import ordered_topk
+
+    probe = ordered_topk(-pairwise_sqdist_xc(q, index.centroids), nprobe)[1].cpu().numpy()
+    offs, szs = index.offsets.cpu().numpy(), index.sizes.cpu().numpy()
+    out_i, out_s = [], []
+    for qi in range(q.shape[0]):
+        pos = np.concatenate([np.arange(offs[c], offs[c] + szs[c]) for c in probe[qi]])
+        ids = index.ids_sorted[torch.as_tensor(pos, device=q.device)].long()
+        d2 = torch.sum((q[qi] - index.decompress(ids)) ** 2, dim=1)
+        s, j = ordered_topk(-d2[None], k)
+        out_s.append((-s[0]).cpu().numpy())
+        out_i.append(ids[j[0].long()].cpu().numpy().astype(np.uint32))
+    return np.stack(out_i), np.stack(out_s)
+
+
+def union_host_split(torch, index, q, k, reps=3) -> None:
+    """Where a union search's wall time goes, for one query block (the
+    whole batch): per run, the host seconds to issue the block (the Python
+    loop over windows returns once every launch is queued; its one host
+    read, the loop bound, comes first) and the seconds the device still
+    needs after that, each per window; then torch.profiler over one block:
+    the CUDA runtime calls per window (launches, synchronizations, copies,
+    allocations), the allocator's requests and device allocations, and the
+    host ops with the most host time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    nprobe = index.ivf_cfg.nprobe
+    chunk = index._auto_chunk("union")
+    rows = round(union_fraction(torch, index, q, nprobe) * index.num_rows)
+    windows = -(-rows // chunk)
+    valid = torch.ones((q.shape[0],), dtype=torch.bool, device=q.device)
+
+    def block():
+        return index._search_block(q, valid, k, nprobe, chunk, "union")
+
+    issue, tail = [], []
+    for _ in range(reps + 1):  # the first is a warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        block()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        issue.append((t1 - t0) * 1e3)
+        tail.append((time.perf_counter() - t1) * 1e3)
+    log(f"[profile] IVF-residual host split Q={q.shape[0]} nprobe={nprobe} k={k}: {windows} "
+        f"windows of {chunk} rows; host issue " + ", ".join(f"{t:.3f}" for t in issue[1:])
+        + " ms (" + ", ".join(f"{t / windows:.4f}" for t in issue[1:]) + " ms a window), "
+        "device tail after it " + ", ".join(f"{t:.3f}" for t in tail[1:])
+        + " ms (host clock, synchronised; " + f"{reps} runs)")
+    m0 = torch.cuda.memory_stats()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        block()
+        torch.cuda.synchronize()
+    m1 = torch.cuda.memory_stats()
+    runtime, busy = {}, 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy += e.device_time / 1e3
+        elif e.name.startswith("cu"):
+            n, ms = runtime.get(e.name, (0, 0.0))
+            runtime[e.name] = (n + 1, ms + e.cpu_time_total / 1e3)
+    allocs = {key: m1.get(key, 0) - m0.get(key, 0)
+              for key in ("allocation.all.allocated", "num_device_alloc", "num_alloc_retries")}
+    log(f"[profile] IVF-residual host split: device busy {busy:.3f} ms a block; allocator "
+        f"requests {allocs['allocation.all.allocated'] / windows:.1f} a window, device "
+        f"allocations (cudaMalloc) {allocs['num_device_alloc']}, retries "
+        f"{allocs['num_alloc_retries']} (torch.cuda.memory_stats)")
+    for name, (n, ms) in sorted(runtime.items(), key=lambda kv: -kv[1][0])[:8]:
+        log(f"[profile] IVF-residual host split:   {n / windows:7.2f} a window  {ms:9.3f} ms "
+            f"host  {name[:60]}")
+    for a in sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:10]:
+        log(f"[profile] IVF-residual host split:   host op {a.key[:50]:50s} {a.count:6d} calls "
+            f"{a.self_cpu_time_total / 1e3:9.3f} ms self")
+
+
+def same_where_separated(torch, index, q, a, b, what):
+    """Two residual-IVF results of the same candidates, (ids, scores) as
+    numpy, L2 ascending: scores within the f32 tolerance F32_RTOL·(‖q‖² +
+    2·max‖x̂‖²), ids equal at every rank whose score is separated from its
+    neighbours by more than it.  Returns (max |Δscore|, separated ranks)."""
+    ids_a, s_a = a
+    ids_b, s_b = b
+    xh = index.decompress(ids_a.reshape(-1).astype(np.int64))
+    tol = F32_RTOL * (torch.sum(q * q, dim=1).cpu().numpy()[:, None]
+                      + 2.0 * float(torch.max(torch.sum(xh * xh, dim=1))))
+    err = np.abs(s_a - s_b)
+    require(bool((err <= tol).all()), f"{what}: scores differ by more than the f32 tolerance")
+    gap = np.diff(s_a, axis=1)
+    sep = np.ones_like(s_a, dtype=bool)
+    sep[:, 1:] &= gap > tol
+    sep[:, :-1] &= gap > tol
+    require(bool((ids_a == ids_b)[sep].all()), f"{what}: ids differ at separated ranks")
+    return float(err.max()), int(sep.sum())
+
+
+def phase_ivf_residual(torch, dev, ctx, k_cl=4096, nprobes=(50, 200), nq_small=8,
+                       pq_m=192, profile=True):
+    """The residual IVF index (``bench.py:543-573`` on the port) on phase 10's
+    corpus and coarse pass (no second k-means): SAQ bpd=2 + PCA (the
+    residual_scorer path) and PQ M=192 B=8 (the decode_fn path), union
+    strategy, nprobe 50 and 200 at Q=256, k=100, each recall beside its
+    probe ceiling; at Q=8, nprobe=50, union = the probed lists decoded and
+    scored exactly (both indexes) and windows = union (SAQ), where
+    separated; a profile and a host split of the SAQ nprobe=50 search;
+    then IvfPackedFlatIndex(RankAware bpd=2) at nprobe=50, whose gather
+    launches it returns."""
+    from vq_tpu_torch import IVFConfig, KMeansConfig, PQConfig, RankAwareConfig, SAQConfig
+    from vq_tpu_torch import SearchConfig
+    from vq_tpu_torch.data.sampling import host_sample_rows
+    from vq_tpu_torch.index.ivf import IvfQuantizedIndex
+    from vq_tpu_torch.index.ivf_packed import IvfPackedFlatIndex
+    from vq_tpu_torch.kernels import packed_scan as pk
+    from vq_tpu_torch.methods.pq import PQ
+    from vq_tpu_torch.methods.rankaware import RankAware
+    from vq_tpu_torch.methods.saq import SAQ
+
+    x, q, gt, cents, asn, kmc = (ctx[key] for key in ("x", "q", "gt", "cents", "asn", "kmc"))
+    k = 100
+    for tag, quant in (("SAQ bpd=2", SAQ(SAQConfig(bits_per_dim=2.0, use_pca=True))),
+                       (f"PQ M={pq_m} B=8", PQ(PQConfig(pq_m, 8, KMeansConfig(iters=10)),
+                                                seed=1))):
+        index = IvfQuantizedIndex(quant, IVFConfig(k_cl, nprobes[0], kmc),
+                                  SearchConfig(use_bf16=True))
+        _, t_build = wall_s(torch, lambda: index.fit(x, coarse=(cents, asn)))
+        path = "residual_scorer" if quant.residual_scorer() is not None else "decode_fn"
+        require(index.codes_sorted.device == x.device, f"IVF {tag}: the lists left the card")
+        log(f"[phase 12] IVF-residual {tag} ({path} path): build (residual fit + encode, the "
+            f"coarse pass reused) {t_build:.3f} s; {quant.code_bytes_per_vector():.0f} code "
+            f"bytes/row; largest list {index.max_cluster} rows; footprint "
+            f"{index.memory_footprint() / 1e6:.1f} MB")
+        for nprobe in nprobes:
+            index.ivf_cfg = dataclasses.replace(index.ivf_cfg, nprobe=nprobe)
+            ids, scores = index.search_with_scores(q, k)
+            require(ids.shape == (q.shape[0], k) and bool(np.isfinite(scores).all()),
+                    f"IVF {tag} nprobe={nprobe}: result")
+            require(bool((np.diff(scores, axis=1) >= 0).all()), f"IVF {tag}: not ascending")
+            ms = cuda_ms(torch, lambda: index.search_with_scores(q, k), reps=3, warmup=1)
+            recalls = ", ".join(f"recall@{r} {recall(gt, ids, r):.4f} (probe ceiling "
+                                f"{probe_ceiling(torch, index, q, gt, nprobe, r):.4f})"
+                                for r in (1, 10, 100))
+            log(f"[phase 12] IVF-residual {tag} Q={q.shape[0]} nprobe={nprobe} k={k} union: "
+                f"{ms:.3f} ms/search (CUDA events, median of 3), QPS {q.shape[0] / ms * 1e3:.1f}"
+                f"; rows in the batch's union {union_fraction(torch, index, q, nprobe):.4f}; "
+                f"{recalls}")
+        index.ivf_cfg = dataclasses.replace(index.ivf_cfg, nprobe=nprobes[0])
+        qs = q[:nq_small]
+        u = index.search_with_scores(qs, k, strategy="union")
+        err, n_sep = same_where_separated(
+            torch, index, qs, u, probed_exact_topk(torch, index, qs, nprobes[0], k),
+            f"IVF {tag} Q={nq_small} union vs the probed lists decoded exactly")
+        log(f"[phase 12] IVF-residual {tag} Q={nq_small} nprobe={nprobes[0]}: union = the "
+            f"probed lists' rows decoded by id and scored exactly (max |Δscore| {err:.3e}, ids "
+            f"equal at {n_sep} separated ranks)")
+        if tag.startswith("SAQ"):
+            w = index.search_with_scores(qs, k, strategy="windows")
+            err, n_sep = same_where_separated(torch, index, qs, u, w,
+                                              f"IVF {tag} Q={nq_small} windows vs union")
+            t_s = {st: cuda_ms(torch, lambda: index.search_with_scores(qs, k, strategy=st),
+                               reps=3, warmup=1) for st in ("windows", "union")}
+            log(f"[phase 12] IVF-residual {tag} Q={nq_small} nprobe={nprobes[0]}: windows = "
+                f"union (max |Δscore| {err:.3e}, ids equal at {n_sep} separated ranks); "
+                f"windows {t_s['windows']:.3f} ms, union {t_s['union']:.3f} ms (CUDA events, "
+                f"median of 3)")
+            if profile:
+                profile_search(torch, index, q, ks=(k,), tag=" IVF-residual", reps=3)
+                union_host_split(torch, index, q, k)
+        del index, quant
+        torch.cuda.empty_cache()
+    pk.reset_launch_counts()
+    ram = RankAware(RankAwareConfig(bits_per_dim=2.0))
+    _, t_qfit = wall_s(torch, lambda: ram.fit(host_sample_rows(x, 200_000, kmc.seed)))
+    rindex = IvfPackedFlatIndex(ram, IVFConfig(k_cl, nprobes[0], kmc), SearchConfig(use_bf16=True))
+    _, t_fit = wall_s(torch, lambda: rindex.fit(x, coarse=(cents, asn)))
+    log(f"[phase 12] IVF-packed RankAware bpd=2: fit {t_qfit:.3f} s, encode + pack "
+        f"{t_fit:.3f} s; {ram.code_bytes_per_vector():.0f} code bytes/row")
+    ivf_search(torch, rindex, q, nprobes[0], k, gt,
+               f"IVF-packed RankAware bpd=2 Q={q.shape[0]} nprobe={nprobes[0]} k={k}",
+               phase="phase 12")
+    launches = pk.packed_scan_topk.gather_launches
+    require_launched({"packed_scan_topk_gather": launches},
+                     "IVF-packed RankAware never launched the gather kernel")
+    del rindex, ram
+    torch.cuda.empty_cache()
+    return launches
 
 
 
@@ -1362,7 +1783,11 @@ def main() -> int:
     phase_gate(torch, dev)
     launches["packed_scan_topk"] = phase_saq_main(torch, dev) + phase_rabitq_main(torch, dev)
     phase_gather_kernels(torch, dev, results)
-    launches["packed_scan_topk_gather"] = phase_ivf_main(torch, dev)
+    launches["packed_scan_topk_gather"], ivf_ctx = phase_ivf_main(torch, dev)
+    for name, count in phase_quantizers(torch, dev).items():
+        launches[name] += count
+    launches["packed_scan_topk_gather"] += phase_ivf_residual(torch, dev, ivf_ctx)
+    del ivf_ctx
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "vq_tpu"))
     require(not leaked, f"JAX or JAX-package modules were imported: {leaked[:5]}")
 

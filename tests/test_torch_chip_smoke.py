@@ -12,6 +12,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -60,10 +61,12 @@ def test_phase_main_and_gate_rehearsal(cpu_smoke):
 
 def test_phase_packed_kernels_rehearsal(cpu_smoke):
     """Phase 6 at D=128, where SAQ lloyd has no value-plane segment (the
-    script requires every dequant kind to launch only on the card)."""
+    script requires every dequant kind to launch only on the card); the
+    fifth configuration is RankAware, and its FFD packing runs once."""
     results = {}
     cs.phase_packed_kernels(torch, cpu_smoke, results, n=3000, d=128, nq=8)
-    assert len(results["packed_scan_topk"]["times"]) == 4
+    times = results["packed_scan_topk"]["times"]
+    assert len(times) == 5 and list(times)[-1].startswith("RankAware lloyd bpd=2 segments")
 
 
 def test_phase_packed_edges_rehearsal(cpu_smoke):
@@ -90,16 +93,48 @@ def test_phase_gather_kernels_rehearsal(cpu_smoke):
     """Phase 9 at N=3000 (6 tiles, the last partial), D=128."""
     results = {}
     cs.phase_gather_kernels(torch, cpu_smoke, results, n=3000, d=128, nq=8)
-    assert set(results["packed_scan_topk_gather"]["times"]) == {"25% random", "all"}
-    assert set(results["packed_scan_topk_gather"]["bounds"]) == {"25% random", "all"}
+    want = {"25% random", "all", "RankAware 25% random", "RankAware all"}
+    assert set(results["packed_scan_topk_gather"]["times"]) == want
+    assert set(results["packed_scan_topk_gather"]["bounds"]) == want
+    assert next(iter(results["packed_scan_topk_gather"]["times"])) == "25% random"
 
 
 def test_phase_ivf_main_rehearsal(cpu_smoke, monkeypatch):
     """Phase 10 at N=6000, D=64, K=32 (nprobe 2 and 8, the full probe 32);
-    its stage timings run, the profiler (no device time here) does not."""
+    its stage timings run, the profiler (no device time here) and phase
+    12's host split (the card's allocator statistics) do not.  Then phase
+    12 on its corpus and coarse pass (PQ M=16 for M=192, which needs
+    D=1536)."""
     monkeypatch.setattr(cs, "profile_search", lambda *a, **k: None)
-    assert cs.phase_ivf_main(torch, cpu_smoke, n=6000, d=64, nq=16, k_cl=32, nprobes=(2, 8),
-                             nq_small=4) == 0
+    monkeypatch.setattr(cs, "union_host_split", lambda *a, **k: None)
+    launches, ctx = cs.phase_ivf_main(torch, cpu_smoke, n=6000, d=64, nq=16, k_cl=32,
+                                      nprobes=(2, 8), nq_small=4)
+    assert launches == 0 and ctx["x"].shape == (6000, 64) and ctx["cents"].shape == (32, 64)
+    assert cs.phase_ivf_residual(torch, cpu_smoke, ctx, k_cl=32, nprobes=(2, 8), nq_small=4,
+                                 pq_m=16) == 0
+
+
+def test_phase_quantizers_rehearsal(cpu_smoke):
+    """Phase 11 at N=3000: OPQ M=16 at D=64 (2 iterations), RankAware, SQ
+    and LVQ at D=64."""
+    launches = cs.phase_quantizers(torch, cpu_smoke, n=3000, d=64, nq=16, n_ra=3000, d_ra=64,
+                                   nq_ra=8, opq_iters=2, opq_train=2000, profile=False)
+    assert launches == {"pq_scan_topk_fused": 0, "packed_scan_topk": 0}
+
+
+def test_same_where_separated_holds_ids_only_where_scores_part():
+    class Index:  # decompress: unit rows
+        def decompress(self, ids):
+            return torch.ones((len(ids), 4)) * 0.5
+
+    q = torch.ones((1, 4)) * 0.5
+    s = np.array([[0.1, 0.2, 0.2 + 1e-7, 0.5]], np.float32)
+    ids = np.array([[3, 4, 5, 6]], np.uint32)
+    swapped = np.array([[3, 5, 4, 6]], np.uint32)
+    err, sep = cs.same_where_separated(torch, Index(), q, (ids, s), (swapped, s), "tie")
+    assert err == 0.0 and sep == 2
+    with pytest.raises(AssertionError, match="ids differ"):
+        cs.same_where_separated(torch, Index(), q, (ids, s), (ids[:, ::-1].copy(), s), "order")
 
 
 def test_bounds_are_the_larger_of_bytes_and_operations():

@@ -13,15 +13,21 @@ import numpy as np
 import pytest
 import torch
 
-from vq_tpu_torch import IVFConfig, KMeansConfig, Metric, PQConfig, RaBitQConfig, SAQConfig
+from vq_tpu_torch import IVFConfig, KMeansConfig, LVQConfig, Metric, OPQConfig, PQConfig
+from vq_tpu_torch import RaBitQConfig, RankAwareConfig, SAQConfig, SQConfig
 from vq_tpu_torch.index.flat import FlatQuantizedIndex
+from vq_tpu_torch.index.ivf import IvfQuantizedIndex
 from vq_tpu_torch.index.ivf_packed import IvfPackedFlatIndex
 from vq_tpu_torch.kernels import packed_scan as pk
 from vq_tpu_torch.kernels import pq_scan as ps
 from vq_tpu_torch.kernels.adc import scan_codes_topk
+from vq_tpu_torch.methods.lvq import LVQ
+from vq_tpu_torch.methods.opq import OPQ
 from vq_tpu_torch.methods.pq import PQ
 from vq_tpu_torch.methods.rabitq import RaBitQ
+from vq_tpu_torch.methods.rankaware import RankAware
 from vq_tpu_torch.methods.saq import SAQ
+from vq_tpu_torch.methods.sq import SQ
 
 pytestmark = pytest.mark.cuda
 
@@ -189,3 +195,171 @@ def test_cuda_tile_mask_on_a_cpu_cache_raises(dev):
     with pytest.raises(ValueError, match="tile_mask"):
         pk.packed_scan_topk(q, qa, (words,), fac, (), (seg,), 5, metric_kind="ip",
                             tile_mask=torch.ones((1,), dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("packing", ["dense", "ffd"])
+def test_rankaware_routes_through_the_packed_kernel(dev, packing):
+    """RankAware at k ≤ 128 launches the packed kernel (no per-row scale);
+    k=200 takes the plain streaming scan; IvfPackedFlatIndex(RankAware)
+    launches the gather mode once a search."""
+    x = torch.randn((3000, 64), generator=torch.Generator(dev).manual_seed(5), device=dev)
+    x = x * torch.linspace(3.0, 0.1, 64, device=dev)
+    q = RankAware(RankAwareConfig(bits_per_dim=2.0, packing=packing))
+    index = FlatQuantizedIndex(q).fit(x)
+    assert index.codes.is_cuda and index._scan_cache.factors.is_cuda
+    pk.reset_launch_counts()
+    for k in (10, 128):
+        ids, _ = index.search_with_scores(x[:7], k)
+        assert ids.shape == (7, k)
+    assert pk.packed_scan_topk.launches == 2
+    ids, _ = index.search_with_scores(x[:7], 200)
+    assert ids.shape == (7, 200) and pk.packed_scan_topk.launches == 2
+    ivf = IvfPackedFlatIndex(RankAware(RankAwareConfig(bits_per_dim=2.0, packing=packing)),
+                             IVFConfig(16, 2, KMeansConfig(iters=3))).fit(x)
+    ivf.search_with_scores(x[:5], 10)
+    assert pk.packed_scan_topk.gather_launches == 1
+
+
+def test_opq_routes_through_the_fused_kernel(dev):
+    x = torch.randn((3000, 32), generator=torch.Generator(dev).manual_seed(6), device=dev)
+    q = OPQ(OPQConfig(4, 8, opq_iters=2, kmeans=KMeansConfig(iters=3)))
+    index = FlatQuantizedIndex(q).fit(x)
+    assert index.codes.is_cuda and q.params.rotation.is_cuda
+    ps.reset_launch_counts()
+    for k in (10, 100):
+        index.search_with_scores(x[:5], k)
+    assert (ps.pq_scan_topk_fused.launches, ps.pq_score_all.launches) == (2, 0)
+
+
+@pytest.mark.parametrize("name", ["sq", "lvq"])
+def test_generic_scan_stays_on_the_card_without_kernels(dev, name):
+    x = torch.randn((3000, 32), generator=torch.Generator(dev).manual_seed(7), device=dev)
+    q = SQ(SQConfig(8)) if name == "sq" else LVQ(LVQConfig(8))
+    index = FlatQuantizedIndex(q).fit(x)
+    assert index.codes.is_cuda
+    ps.reset_launch_counts()
+    pk.reset_launch_counts()
+    ids, _ = index.search_with_scores(x[:5], 10)
+    assert ids.shape == (5, 10)
+    assert ps.pq_scan_topk_fused.launches == pk.packed_scan_topk.launches == 0
+
+
+@pytest.mark.parametrize("name", ["pq", "saq"])
+def test_residual_ivf_stays_on_the_card(dev, name):
+    """IvfQuantizedIndex builds and searches on the card (plain torch list
+    scans, no scan kernel), both strategies agreeing."""
+    x = torch.randn((6000, 64), generator=torch.Generator(dev).manual_seed(8), device=dev)
+    q = PQ(PQConfig(8, 8, KMeansConfig(iters=3))) if name == "pq" else SAQ(
+        SAQConfig(bits_per_dim=2.0, block_dims=16))
+    index = IvfQuantizedIndex(q, IVFConfig(16, 3, KMeansConfig(iters=3))).fit(x)
+    assert index.codes_sorted.is_cuda and index.centroids.is_cuda
+    ps.reset_launch_counts()
+    pk.reset_launch_counts()
+    ui, us = index.search_with_scores(x[:9], 10)
+    wi, ws = index.search_with_scores(x[:9], 10, strategy="windows")
+    assert ui.shape == (9, 10) and np.allclose(us, ws, rtol=1e-4, atol=1e-4)
+    assert ps.pq_scan_topk_fused.launches == pk.packed_scan_topk.launches == 0
+    assert index.decompress(np.arange(5)).is_cuda
+
+
+def _same_ids_where_separated(got_i, want_i, want_s, rtol=1e-5):
+    """ids equal wherever the reference's score at that rank is more than
+    rtol · max|score| from its neighbours' (f32 sums in another order may
+    swap rounding ties)."""
+    tol = rtol * np.abs(want_s).max()
+    sep = np.ones(want_i.shape, dtype=bool)
+    gap = np.abs(np.diff(want_s, axis=1)) > tol
+    sep[:, 1:] &= gap
+    sep[:, :-1] &= gap
+    np.testing.assert_array_equal(got_i[sep], want_i[sep])
+
+
+def test_pq_nine_bits_keeps_uint16_codes_on_the_card(dev):
+    """PQ at B=9 (512 codewords) on the card: uint16 codes in the flat and
+    the residual IVF index, the plain scans (the kernels take uint8 codes,
+    K ≤ 256), and the ids and footprint of the same index copied to the
+    CPU.  f32 throughout (use_bf16 off), so the two devices score alike up
+    to summation order."""
+    from vq_tpu_torch import SearchConfig, convert
+
+    x = torch.randn((3000, 16), generator=torch.Generator(dev).manual_seed(10), device=dev)
+    cfg, scfg = PQConfig(4, 9, KMeansConfig(iters=3)), SearchConfig(use_bf16=False)
+    flat = FlatQuantizedIndex(PQ(cfg), scfg).fit(x)
+    ivf = IvfQuantizedIndex(PQ(cfg), IVFConfig(16, 3, KMeansConfig(iters=3)), scfg).fit(x)
+    assert flat.codes.is_cuda and ivf.codes_sorted.is_cuda
+    assert flat.codes.dtype == ivf.codes_sorted.dtype == torch.uint16
+    ps.reset_launch_counts()
+    pk.reset_launch_counts()
+    got = {"flat": flat.search_with_scores(x[:9], 10),
+           "union": ivf.search_with_scores(x[:9], 10),
+           "windows": ivf.search_with_scores(x[:9], 10, strategy="windows")}
+    assert ps.pq_scan_topk_fused.launches == ps.pq_score_all.launches == 0
+    assert pk.packed_scan_topk.launches == pk.packed_scan_topk.gather_launches == 0
+
+    def h(t):
+        return t.cpu().numpy()
+
+    flat_cpu = convert.flat_index_from_numpy(
+        h(flat.quantizer.params.codebooks), h(flat.codes), h(flat.norms), flat.num_rows, scfg,
+        cfg, device="cpu")
+    ivf_cpu = convert.ivf_index_from_numpy(
+        convert.pq_from_numpy(h(ivf.quantizer.params.codebooks), cfg, device="cpu"),
+        h(ivf.centroids), h(ivf.codes_sorted), h(ivf.ids_sorted), h(ivf.norms_sorted),
+        h(ivf.offsets), h(ivf.sizes), h(ivf._inv_perm), h(ivf._assignment), ivf.ivf_cfg, scfg)
+    assert flat_cpu.codes.dtype == ivf_cpu.codes_sorted.dtype == torch.uint16
+    assert flat_cpu.memory_footprint() == flat.memory_footprint()
+    assert ivf_cpu.memory_footprint() == ivf.memory_footprint()
+    qc = x[:9].cpu()
+    want = {"flat": flat_cpu.search_with_scores(qc, 10),
+            "union": ivf_cpu.search_with_scores(qc, 10),
+            "windows": ivf_cpu.search_with_scores(qc, 10, strategy="windows")}
+    for name, (wi, ws) in want.items():
+        gi, gs = got[name]
+        _same_ids_where_separated(gi, wi, ws)
+        np.testing.assert_allclose(gs, ws, rtol=1e-5, atol=1e-5 * np.abs(ws).max())
+
+
+def test_sq_sixteen_bits_in_the_residual_ivf_on_the_card(dev):
+    """SQ at 16 bits stores uint16 codes too: the residual IVF index walks
+    them on the card (both strategies) with the ids of its CPU copy."""
+    from types import SimpleNamespace
+
+    from vq_tpu_torch import SearchConfig, convert
+
+    x = torch.randn((3000, 16), generator=torch.Generator(dev).manual_seed(11), device=dev)
+    scfg = SearchConfig(use_bf16=False)
+    ivf = IvfQuantizedIndex(SQ(SQConfig(16)), IVFConfig(16, 3, KMeansConfig(iters=3)),
+                            scfg).fit(x)
+    assert ivf.codes_sorted.is_cuda and ivf.codes_sorted.dtype == torch.uint16
+
+    def h(t):
+        return t.cpu().numpy()
+
+    p = ivf.quantizer.params
+    ivf_cpu = convert.ivf_index_from_numpy(
+        convert.sq_from_numpy(SimpleNamespace(lo=h(p.lo), scale=h(p.scale)), 16, SQConfig(16),
+                              device="cpu"),
+        h(ivf.centroids), h(ivf.codes_sorted), h(ivf.ids_sorted), h(ivf.norms_sorted),
+        h(ivf.offsets), h(ivf.sizes), h(ivf._inv_perm), h(ivf._assignment), ivf.ivf_cfg, scfg)
+    assert ivf_cpu.memory_footprint() == ivf.memory_footprint()
+    for strategy in ("union", "windows"):
+        gi, gs = ivf.search_with_scores(x[:9], 10, strategy=strategy)
+        wi, ws = ivf_cpu.search_with_scores(x[:9].cpu(), 10, strategy=strategy)
+        _same_ids_where_separated(gi, wi, ws)
+        np.testing.assert_allclose(gs, ws, rtol=1e-5, atol=1e-5 * np.abs(ws).max())
+    np.testing.assert_allclose(h(ivf.decompress(np.arange(5))),
+                               h(ivf_cpu.decompress(np.arange(5))), rtol=1e-6, atol=1e-6)
+
+
+def test_kmeans_is_deterministic_on_the_card(dev):
+    from vq_tpu_torch._device import make_generator
+    from vq_tpu_torch.kernels.kmeans import kmeans, kmeans_batched
+
+    x = torch.randn((20000, 32), generator=torch.Generator(dev).manual_seed(9), device=dev)
+    cfg = KMeansConfig(iters=5)
+    a = kmeans(make_generator(0, dev), x, 256, cfg)
+    b = kmeans(make_generator(0, dev), x, 256, cfg)
+    assert torch.equal(a, b)
+    xs = x.reshape(20000, 4, 8).transpose(0, 1)
+    assert torch.equal(kmeans_batched(make_generator(1, dev), xs, 64, cfg),
+                       kmeans_batched(make_generator(1, dev), xs, 64, cfg))

@@ -119,6 +119,29 @@ def test_port_fit_end_to_end_recall_close_to_jax(data):
                                rtol=1e-6)
 
 
+def test_nine_bit_pq_footprint_and_search_equal_jax():
+    """PQ M=4 B=9 on 3000 × 16 rows: uint16 codes, the JAX package's
+    footprint byte for byte (68,768 B), and its search."""
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((3000, 16)).astype(np.float32)
+    q = x[:20] + 0.05 * rng.standard_normal((20, 16)).astype(np.float32)
+    cfg = PQConfig(num_subquantizers=4, num_bits=9, kmeans=KMeansConfig(iters=3))
+    j = JaxFlat(JaxPQ(cfg, seed=0)).fit(x)
+    t = convert.flat_index_from_numpy(
+        np.asarray(j.quantizer.params.codebooks), np.asarray(j.codes), np.asarray(j.norms),
+        j.num_rows, convert.config_from_jax(j.search_cfg), convert.config_from_jax(cfg),
+        device="cpu")
+    assert t.codes.dtype == torch.uint16
+    assert t.memory_footprint() == j.memory_footprint() == 68_768
+    for k in (10, 100):
+        wi, ws = j.search_with_scores(q, k)
+        gi, gs = t.search_with_scores(q, k)
+        assert_same_ranking(gi, wi, ws)
+        np.testing.assert_allclose(gs, ws, rtol=1e-5, atol=1e-4)
+    own = FlatQuantizedIndex(PQ(convert.config_from_jax(cfg), device="cpu")).fit(x)
+    assert own.codes.dtype == torch.uint16 and own.memory_footprint() == 68_768
+
+
 def test_approx_topk_is_refused():
     with pytest.raises(ValueError, match="approx"):
         FlatQuantizedIndex(PQ(CFG), SearchConfig(approx=True))

@@ -33,7 +33,9 @@ from vq_tpu.core.config import SearchConfig
 from vq_tpu.index import ivf_packed as jivf
 from vq_tpu.index.ivf import chunked_assign as jax_chunked_assign
 from vq_tpu.kernels.kmeans import kmeans as jax_kmeans
+from vq_tpu.core.config import RankAwareConfig
 from vq_tpu.methods.rabitq import RaBitQ as JaxRaBitQ
+from vq_tpu.methods.rankaware import RankAware as JaxRankAware
 from vq_tpu.methods.saq import SAQ as JaxSAQ
 from vq_tpu_torch import Metric as TMetric
 from vq_tpu_torch import convert
@@ -84,9 +86,13 @@ def _carry(j):
     """The JAX index's state, through numpy, into a port index on the CPU."""
     params = jax.tree_util.tree_map(np.asarray, j.quantizer.params)
     cfg = convert.config_from_jax(j.quantizer.cfg)
-    tq = (convert.saq_from_numpy(j.quantizer.plan, params, cfg, device="cpu")
-          if isinstance(j.quantizer, JaxSAQ) else
-          convert.rabitq_from_numpy(params, cfg, device="cpu"))
+    if isinstance(j.quantizer, JaxSAQ):
+        tq = convert.saq_from_numpy(j.quantizer.plan, params, cfg, device="cpu")
+    elif isinstance(j.quantizer, JaxRankAware):
+        tq = convert.rankaware_from_numpy(params, j.quantizer.bits, j.quantizer.layout, cfg,
+                                          device="cpu")
+    else:
+        tq = convert.rabitq_from_numpy(params, cfg, device="cpu")
     c = j.cache
     return convert.ivf_packed_index_from_numpy(
         tq, np.asarray(j.centroids), np.asarray(j.ids_sorted), np.asarray(j.cl_first),
@@ -172,6 +178,30 @@ def test_same_cache_rabitq_searches_like_jax(data, coarse):
     assert_same_ranking(gi, wi, ws)
     assert_close_scores(gs, ws)
     assert t.last_tiles_scanned == j.last_tiles_scanned < -(-N // TILE)
+
+
+@pytest.mark.parametrize("packing", ["dense", "ffd"])
+def test_same_cache_rankaware_searches_like_jax(data, coarse, packing):
+    """RankAware (no per-row scale, one segment per bit width): a partial
+    mask at nprobe=1, L2, k=10; the port's own build from JAX's coarse pass
+    and quantizer gives JAX's words byte for byte."""
+    j = _jax_index(data, coarse, JaxRankAware(RankAwareConfig(bits_per_dim=2.0,
+                                                              packing=packing)))
+    t = _carry(j)
+    q = data[1][:3]
+    _set(j, False, 1, Metric.L2)
+    _set(t, True, 1, TMetric.L2)
+    wi, ws = j.search_with_scores(q, 10)
+    gi, gs = t.search_with_scores(q, 10)
+    assert_same_ranking(gi, wi, ws)
+    assert_close_scores(gs, ws)
+    assert t.last_tiles_scanned == j.last_tiles_scanned < -(-N // TILE)
+    assert t.memory_footprint() == j.memory_footprint()
+    own = tivf.IvfPackedFlatIndex(t.quantizer, convert.config_from_jax(j.ivf_cfg))
+    own.fit(data[0], coarse=coarse)
+    np.testing.assert_array_equal(own.ids_sorted.numpy(), np.asarray(j.ids_sorted))
+    for a, b in zip(own.cache.words, j.cache.words):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
 def test_carried_index_memory_footprint_equals_jax(saq_pair):

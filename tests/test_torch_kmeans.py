@@ -126,3 +126,41 @@ def test_kmeanspp_init_picks_distinct_rows():
     c = tkm._kmeanspp_init(make_generator(1, "cpu"), torch.from_numpy(x)[None], 16)[0]
     assert len({tuple(r) for r in c.numpy().round(6)}) == 16
     assert all((np.abs(x - r).sum(1) == 0).any() for r in c.numpy())
+
+
+def _scatter_add_lloyd(x, c):
+    """The old update (float scatter-add sums), kept here as the reference
+    the fixed-order reduction must equal on the CPU."""
+    a = torch.argmin(tkm.pairwise_sqdist_xc(x, c), dim=-1)
+    sums = torch.zeros_like(c).scatter_add_(1, a[..., None].expand(-1, -1, x.shape[2]), x)
+    counts = torch.zeros(c.shape[:2]).scatter_add_(1, a, torch.ones_like(a, dtype=torch.float32))
+    new_c = sums / torch.clamp(counts, min=1.0)[..., None]
+    return torch.where((counts > 0)[..., None], new_c, c)
+
+
+@pytest.mark.parametrize("tile_elems", [None, 2 * 16 * 700])
+def test_fixed_order_lloyd_equals_scatter_add_and_jax(monkeypatch, tile_elems):
+    """The sorted segment sums against the scatter-add sums and JAX's
+    one-hot product, from the same start (1e-5: another f32 summation
+    order), whole and row-tiled; an empty cluster keeps its centroid."""
+    xs = np.stack([_blobs(n=3000, seed=s)[0] for s in (14, 15)])
+    cs = np.stack([_blobs(n=3000, seed=s)[1] for s in (14, 15)])
+    cs[1, 4] = 1e3  # empty
+    if tile_elems:
+        monkeypatch.setattr(tkm, "_TILE_ELEMS", tile_elems)
+    got = tkm._lloyd_iter(torch.from_numpy(xs), torch.from_numpy(cs))
+    old = _scatter_add_lloyd(torch.from_numpy(xs), torch.from_numpy(cs))
+    want = np.asarray(jax.vmap(jkm._lloyd_iter)(jnp.asarray(xs), jnp.asarray(cs)))
+    np.testing.assert_allclose(got.numpy(), old.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(got[1, 4].numpy(), cs[1, 4])
+
+
+def test_fit_is_deterministic():
+    """Two fits from one seed give the same centroids bit for bit (the card
+    holds the same in chip_smoke.py)."""
+    xs = torch.from_numpy(np.stack([_blobs(n=2000, seed=s)[0] for s in (16, 17)]))
+    cfg = KMeansConfig(iters=4, max_points_per_centroid=64)
+    a = tkm.kmeans_batched(make_generator(3, "cpu"), xs, 16, cfg)
+    b = tkm.kmeans_batched(make_generator(3, "cpu"), xs, 16, cfg)
+    assert torch.equal(a, b)

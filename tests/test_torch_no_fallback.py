@@ -1,8 +1,8 @@
 """The port hides neither the device nor the kernels.
 
 * ``vq_tpu_torch`` never imports jax nor any module of the JAX package
-  ``vq_tpu`` (checked in a fresh interpreter after driving the Flat and
-  IVF-packed searches).
+  ``vq_tpu`` (checked in a fresh interpreter after driving the Flat,
+  residual-IVF and IVF-packed searches with every quantizer).
 * The card is the default: asking for ``cuda``, or for no device with host
   data, without a card raises; nothing falls back to the CPU.
 * A quantizer built without a device takes a tensor corpus's device; a
@@ -22,8 +22,11 @@ import numpy as np
 import pytest
 import torch
 
-from vq_tpu_torch import IVFConfig, KMeansConfig, Metric, PQConfig, RaBitQConfig, SAQConfig
+from vq_tpu_torch import IVFConfig, KMeansConfig, LVQConfig, Metric, OPQConfig, PQConfig
+from vq_tpu_torch import RaBitQConfig, RankAwareConfig, SAQConfig, SQConfig
 from vq_tpu_torch import _device
+from vq_tpu_torch.index.ivf import IvfQuantizedIndex
+from vq_tpu_torch.methods import LVQ, OPQ, SQ, RankAware
 from vq_tpu_torch.kernels import _build
 from vq_tpu_torch.index.flat import FlatQuantizedIndex
 from vq_tpu_torch.index.ivf_packed import IvfPackedFlatIndex
@@ -45,7 +48,11 @@ from vq_tpu_torch import IVFConfig, KMeansConfig, PQConfig, RaBitQConfig, SAQCon
 from vq_tpu_torch.core import packing
 from vq_tpu_torch.index.flat import FlatQuantizedIndex
 from vq_tpu_torch.index.ivf_packed import IvfPackedFlatIndex
+from vq_tpu_torch import LVQConfig, OPQConfig, RankAwareConfig, SQConfig
+from vq_tpu_torch.core import ffd
+from vq_tpu_torch.index.ivf import IvfQuantizedIndex
 from vq_tpu_torch.kernels import caq, lloyd1d, packed_scan
+from vq_tpu_torch.methods import LVQ, OPQ, SQ, RankAware
 from vq_tpu_torch.methods.pq import PQ
 from vq_tpu_torch.methods.rabitq import RaBitQ
 from vq_tpu_torch.methods.saq import SAQ
@@ -53,13 +60,21 @@ x = np.random.default_rng(0).standard_normal((1200, 16)).astype(np.float32)
 cpu = dict(device="cpu")
 for q in (PQ(PQConfig(4, 4, KMeansConfig(iters=2)), **cpu), SAQ(SAQConfig(2.0, block_dims=8), **cpu),
           SAQ(SAQConfig(3.0, block_dims=8, codebook="exact"), **cpu),
-          RaBitQ(RaBitQConfig(2), **cpu)):
+          RaBitQ(RaBitQConfig(2), **cpu), OPQ(OPQConfig(4, 4, 2, KMeansConfig(iters=2)), **cpu),
+          SQ(SQConfig(4), **cpu), LVQ(LVQConfig(4), **cpu),
+          RankAware(RankAwareConfig(2.0, codebook="exact", packing="ffd"), **cpu)):
     ids = FlatQuantizedIndex(q).fit(x).search(x[:5], 3)
     assert ids.shape == (5, 3), ids.shape
-for q in (SAQ(SAQConfig(2.0, block_dims=8), **cpu), RaBitQ(RaBitQConfig(2), **cpu)):
+for q in (SAQ(SAQConfig(2.0, block_dims=8), **cpu), RaBitQ(RaBitQConfig(2), **cpu),
+          RankAware(RankAwareConfig(2.0), **cpu)):
     ivf = IvfPackedFlatIndex(q, IVFConfig(8, 2, KMeansConfig(iters=2))).fit(x)
     ids = ivf.search(x[:5], 3)
     assert ids.shape == (5, 3) and 0 < ivf.last_tiles_scanned <= 3, ids.shape
+for q in (PQ(PQConfig(4, 4, KMeansConfig(iters=2)), **cpu), RankAware(RankAwareConfig(2.0), **cpu)):
+    ivf = IvfQuantizedIndex(q, IVFConfig(8, 2, KMeansConfig(iters=2))).fit(x)
+    for strategy in ("union", "windows"):
+        ids, _ = ivf.search_with_scores(x[:5], 3, strategy=strategy)
+        assert ids.shape == (5, 3), ids.shape
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "vq_tpu"))
 assert not loaded, loaded
@@ -98,14 +113,18 @@ def test_host_corpus_without_a_device_goes_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         _device.resolve_device(None)
     for q in (PQ(PQConfig(4, 4, KMeansConfig(iters=2))), SAQ(SAQConfig(2.0, block_dims=8)),
-              RaBitQ(RaBitQConfig(2))):
+              RaBitQ(RaBitQConfig(2)), OPQ(OPQConfig(4, 4, 2, KMeansConfig(iters=2))),
+              SQ(SQConfig(8)), LVQ(LVQConfig(8)), RankAware(RankAwareConfig(2.0))):
         assert q.device is None
         with pytest.raises(RuntimeError, match="cuda"):
             q.fit(x)
         with pytest.raises(RuntimeError, match="cuda"):
             FlatQuantizedIndex(type(q)(q.cfg)).fit(x)
+    for index in (IvfPackedFlatIndex, IvfQuantizedIndex):
+        with pytest.raises(RuntimeError, match="cuda"):
+            index(SAQ(SAQConfig(2.0, block_dims=8)), IVFConfig(4, 1, KMeansConfig(iters=2))).fit(x)
     with pytest.raises(RuntimeError, match="cuda"):
-        IvfPackedFlatIndex(SAQ(SAQConfig(2.0, block_dims=8)),
+        IvfPackedFlatIndex(RankAware(RankAwareConfig(2.0)),
                            IVFConfig(4, 1, KMeansConfig(iters=2))).fit(x)
 
 
@@ -161,7 +180,7 @@ def test_cpu_tensors_leave_the_packed_counter_at_zero():
     x = np.random.default_rng(1).standard_normal((700, 16)).astype(np.float32)
     pk.reset_launch_counts()
     for q in (SAQ(SAQConfig(2.0, block_dims=8), device="cpu"),
-              RaBitQ(RaBitQConfig(2), device="cpu")):
+              RaBitQ(RaBitQConfig(2), device="cpu"), RankAware(RankAwareConfig(2.0), device="cpu")):
         index = FlatQuantizedIndex(q).fit(x)
         for k in (10, 100):
             index.search(x[:4], k)

@@ -131,3 +131,31 @@ def test_to_subspaces_layout_matches_jax():
     np.testing.assert_array_equal(tpq._to_subspaces(torch.from_numpy(x), 4).numpy(), want)
     with pytest.raises(ValueError):
         tpq._to_subspaces(torch.from_numpy(x), 3)
+
+
+def test_nine_bit_codes_are_uint16_like_jax():
+    """K = 512 codewords: uint16 codes (the JAX package's dtype), equal to
+    JAX's encode from the same codebooks, and the code bytes it reports."""
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((3000, 16)).astype(np.float32)
+    cfg = PQConfig(num_subquantizers=4, num_bits=9, kmeans=KMeansConfig(iters=3))
+    jq = jpq.PQ(cfg, seed=0).fit(x)
+    tq = convert.pq_from_numpy(np.asarray(jq.params.codebooks), convert.config_from_jax(cfg),
+                               device="cpu")
+    want = np.asarray(jq.compress(x))
+    got = tq.compress(x)
+    assert want.dtype == np.uint16 and got.dtype == torch.uint16
+    assert (got.numpy() != want).sum() <= 3  # subspace near-ties only
+    np.testing.assert_allclose(tq.decompress(want).numpy(), np.asarray(jq.decompress(want)),
+                               atol=1e-6, rtol=0)
+    assert tq.code_bytes_per_vector() == jq.code_bytes_per_vector() == 8.0
+
+
+def test_codes_from_numpy_keeps_the_dtype():
+    """uint16 codes whose values are all ≤ 255 stay uint16 (the dtype is the
+    codebook's, not the values')."""
+    small = np.arange(12, dtype=np.uint16).reshape(3, 4)
+    assert convert.codes_from_numpy(small, "cpu").dtype == torch.uint16
+    assert convert.codes_from_numpy(small.astype(np.uint8), "cpu").dtype == torch.uint8
+    with pytest.raises(ValueError, match="uint8 or uint16"):
+        convert.codes_from_numpy(small.astype(np.int32), "cpu")

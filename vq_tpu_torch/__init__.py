@@ -14,9 +14,11 @@ counterpart's path and public functions so the two are easy to compare:
     core/config.py      ← vq_tpu/core/config.py       the configs (a copy)
     native/             ← vq_tpu/native               host allocators (a copy)
     data/sampling.py    ← vq_tpu/data/sampling.py
-    methods/pq.py, methods/saq.py, methods/rabitq.py ← the same paths
+    core/ffd.py         ← vq_tpu/core/ffd.py          FFD and dense bit packing
+    methods/pq.py, methods/saq.py, methods/rabitq.py, methods/opq.py,
+    methods/sq.py, methods/lvq.py, methods/rankaware.py ← the same paths
     index/flat.py       ← vq_tpu/index/flat.py
-    index/ivf.py        ← vq_tpu/index/ivf.py         IVF build helpers
+    index/ivf.py        ← vq_tpu/index/ivf.py         residual IVF index
     index/ivf_packed.py ← vq_tpu/index/ivf_packed.py  probed-tile IVF index
     convert.py          JAX-package state (as numpy) → port state
 
@@ -31,14 +33,19 @@ from vq_tpu_torch._device import bf16_supported, resolve_device
 from vq_tpu_torch.core.config import (
     IVFConfig,
     KMeansConfig,
+    LVQConfig,
     Metric,
+    OPQConfig,
     PQConfig,
     RaBitQConfig,
+    RankAwareConfig,
     SAQConfig,
     SearchConfig,
+    SQConfig,
 )
 
 __version__ = "0.1.0"
 
-__all__ = ["IVFConfig", "KMeansConfig", "Metric", "PQConfig", "RaBitQConfig", "SAQConfig",
-           "SearchConfig", "bf16_supported", "resolve_device"]
+__all__ = ["IVFConfig", "KMeansConfig", "LVQConfig", "Metric", "OPQConfig", "PQConfig",
+           "RaBitQConfig", "RankAwareConfig", "SAQConfig", "SearchConfig", "SQConfig",
+           "bf16_supported", "resolve_device"]

@@ -15,6 +15,8 @@ entry point of the port, each function puts its tensors on the card unless
                          jax_saq.params), jax_saq.cfg)
     packed = packed_corpus_from_numpy(words, factors, ...)   # (N, F) factors
     index = ivf_packed_index_from_numpy(saq, np.asarray(jax_index.centroids), ...)
+    ra = rankaware_from_numpy(params, jax_ra.bits, jax_ra.layout, jax_ra.cfg)
+    index = ivf_index_from_numpy(quantizer, np.asarray(jax_ivf.centroids), ...)
 """
 
 from __future__ import annotations
@@ -26,14 +28,29 @@ import numpy as np
 import torch
 
 from vq_tpu_torch.core import config as _config
-from vq_tpu_torch.core.config import PQConfig, RaBitQConfig, SAQConfig, SearchConfig
+from vq_tpu_torch.core.config import (
+    LVQConfig,
+    OPQConfig,
+    PQConfig,
+    RaBitQConfig,
+    RankAwareConfig,
+    SAQConfig,
+    SearchConfig,
+    SQConfig,
+)
 from vq_tpu_torch._device import resolve_device
+from vq_tpu_torch.core.ffd import FFDLayout
 from vq_tpu_torch.index.flat import FlatQuantizedIndex
+from vq_tpu_torch.index.ivf import IvfQuantizedIndex
 from vq_tpu_torch.index.ivf_packed import IvfPackedFlatIndex
 from vq_tpu_torch.kernels.packed_scan import PackedCorpus
+from vq_tpu_torch.methods.lvq import LVQ, LVQParams
+from vq_tpu_torch.methods.opq import OPQ, OPQParams
 from vq_tpu_torch.methods.pq import PQ, PQParams
 from vq_tpu_torch.methods.rabitq import RaBitQ, RaBitQParams
+from vq_tpu_torch.methods.rankaware import RankAware, RankAwareParams
 from vq_tpu_torch.methods.saq import SAQ, SAQParams, SAQPlan
+from vq_tpu_torch.methods.sq import SQ, SQParams
 
 
 def config_from_jax(cfg):
@@ -68,12 +85,14 @@ def pq_params_from_numpy(codebooks: np.ndarray, device=None) -> PQParams:
 
 
 def codes_from_numpy(codes: np.ndarray, device=None) -> torch.Tensor:
-    """PQ codes (N, M) → uint8 tensor (int32 when a code exceeds 255)."""
+    """PQ codes (N, M) → a tensor of the same dtype: uint8 (K ≤ 256) or
+    uint16 (K ≤ 65536), as the JAX package stores them whatever the values."""
     c = np.asarray(codes)
     if c.ndim != 2:
         raise ValueError(f"codes must be (N, M), got {c.shape}")
-    dtype = np.uint8 if c.size == 0 or int(c.max()) <= 255 else np.int32
-    return torch.tensor(c.astype(dtype), device=resolve_device(device))
+    if c.dtype not in (np.uint8, np.uint16):
+        raise ValueError(f"PQ codes must be uint8 or uint16, got {c.dtype}")
+    return torch.tensor(np.ascontiguousarray(c), device=resolve_device(device))
 
 
 def pq_from_numpy(codebooks: np.ndarray, cfg: PQConfig, seed: int = 0,
@@ -171,4 +190,70 @@ def ivf_packed_index_from_numpy(quantizer, centroids: np.ndarray, ids_sorted: np
     index.cache = packed_corpus_from_numpy(words, factors, num_rows, tile_stats,
                                            has_norms=has_norms, prune_hint=prune_hint,
                                            device=dev)
+    return index
+
+
+def sq_from_numpy(params, dim: int, cfg: SQConfig, device=None) -> SQ:
+    """A fitted ``SQ`` from JAX ``SQParams`` (lo, scale) of numpy arrays."""
+    sq = SQ(cfg, device=resolve_device(device))
+    sq.params = SQParams(lo=_tensor(params.lo, sq.device), scale=_tensor(params.scale, sq.device))
+    sq._dim = int(dim)
+    return sq
+
+
+def lvq_from_numpy(params, cfg: LVQConfig, device=None) -> LVQ:
+    """A fitted ``LVQ`` from JAX ``LVQParams`` (mean) of numpy arrays."""
+    lvq = LVQ(cfg, device=resolve_device(device))
+    lvq.params = LVQParams(mean=_tensor(params.mean, lvq.device))
+    lvq._dim = lvq.params.mean.shape[0]
+    return lvq
+
+
+def opq_from_numpy(params, cfg: OPQConfig, seed: int = 0, device=None) -> OPQ:
+    """A fitted ``OPQ`` from JAX ``OPQParams`` (rotation, codebooks)."""
+    opq = OPQ(cfg, seed=seed, device=resolve_device(device))
+    opq.params = OPQParams(rotation=_tensor(params.rotation, opq.device),
+                           codebooks=_tensor(params.codebooks, opq.device))
+    opq._dim = opq.params.rotation.shape[0]
+    return opq
+
+
+def rankaware_from_numpy(params, bits, layout, cfg: RankAwareConfig, device=None) -> RankAware:
+    """A fitted ``RankAware`` from JAX ``RankAwareParams`` of numpy arrays, its
+    (D,) bit widths and its FFD layout (a NamedTuple of numpy, or None)."""
+    ra = RankAware(cfg, device=resolve_device(device))
+    ra.params = RankAwareParams(mean=_tensor(params.mean, ra.device),
+                                rotation=_tensor(params.rotation, ra.device),
+                                codebooks=_tensor(params.codebooks, ra.device))
+    ra.bits = np.asarray(bits, dtype=np.int64)
+    ra.layout = None if layout is None else FFDLayout(
+        bits=np.asarray(layout.bits, np.int64), byte_idx=np.asarray(layout.byte_idx, np.int64),
+        shift=np.asarray(layout.shift, np.int64), n_bytes=int(layout.n_bytes))
+    ra._dim = ra.params.mean.shape[0]
+    return ra
+
+
+def ivf_index_from_numpy(quantizer, centroids: np.ndarray, codes_sorted: np.ndarray,
+                         ids_sorted: np.ndarray, norms_sorted: np.ndarray, offsets: np.ndarray,
+                         sizes: np.ndarray, inv_perm: np.ndarray, assignment: np.ndarray,
+                         ivf_cfg=None, search_cfg=None) -> IvfQuantizedIndex:
+    """The state of a JAX ``IvfQuantizedIndex`` (``vq_tpu/index/ivf.py``) →
+    a port index over the fitted port ``quantizer``, on its device: the
+    centroids, the padded cluster-sorted codes, ids and norms, the CSR
+    offsets and sizes, the inverse permutation and the assignment, with
+    the JAX arrays' dtypes (so the footprints compare byte for byte); the
+    configs through ``config_from_jax``."""
+    dev = quantizer.device
+    index = IvfQuantizedIndex(quantizer, config_from_jax(ivf_cfg or _config.IVFConfig()),
+                              config_from_jax(search_cfg or SearchConfig()))
+    index.centroids = _tensor(centroids, dev)
+    index.codes_sorted = torch.tensor(np.ascontiguousarray(codes_sorted), device=dev)
+    index.ids_sorted = _tensor(ids_sorted, dev, np.int32)
+    index.norms_sorted = _tensor(norms_sorted, dev)
+    index.offsets = _tensor(offsets, dev, np.int32)
+    index.sizes = _tensor(sizes, dev, np.int32)
+    index._inv_perm = _tensor(inv_perm, dev, np.int64)
+    index._assignment = _tensor(assignment, dev, np.int32)
+    index.max_cluster = int(np.max(sizes))
+    index.num_rows = int(len(assignment))
     return index

@@ -1,1 +1,1 @@
-"""Framework-level pieces of the port (bit packing)."""
+"""Framework-level pieces of the port (configs, bit packing, FFD layouts)."""

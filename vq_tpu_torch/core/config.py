@@ -59,7 +59,7 @@ class PQConfig:
 
 @dataclass(frozen=True)
 class OPQConfig:
-    """Optimized PQ: learned rotation + PQ (not ported yet)."""
+    """Optimized PQ: learned rotation + PQ."""
 
     num_subquantizers: int = 8
     num_bits: int = 8
@@ -77,8 +77,7 @@ class OPQConfig:
 
 @dataclass(frozen=True)
 class SQConfig:
-    """Per-dimension uniform scalar quantization at 4/8/16 bits (not ported
-    yet)."""
+    """Per-dimension uniform scalar quantization at 4/8/16 bits."""
 
     num_bits: int = 8  # one of 4, 8, 16
 
@@ -114,8 +113,7 @@ class SAQConfig:
 
 @dataclass(frozen=True)
 class LVQConfig:
-    """Locally-adaptive VQ: global mean, per-vector lo/delta (not ported
-    yet)."""
+    """Locally-adaptive VQ: global mean, per-vector lo/delta."""
 
     num_bits: int = 8
 
@@ -123,12 +121,12 @@ class LVQConfig:
 @dataclass(frozen=True)
 class RankAwareConfig:
     """PCA rotation + var^(1+alpha)-weighted greedy per-dim bit allocation +
-    per-dim codebooks (not ported yet)."""
+    per-dim codebooks."""
 
     bits_per_dim: float = 4.0
     alpha: float = 0.5
     max_bits: int = 8
-    codebook: str = "lloyd"  # "gaussian" | "lloyd"
+    codebook: str = "lloyd"  # "gaussian" | "lloyd" | "exact"
     packing: str = "dense"  # "dense" (cross-byte bit stream) | "ffd" (byte-aligned)
     seed: int = 0
 

@@ -1,9 +1,12 @@
 """Batched Lloyd k-means — counterpart of ``vq_tpu/kernels/kmeans.py``.
 
-Assignment is a matmul-argmin (‖x‖² − 2x·c + ‖c‖²); the update is a
-scatter-add segment sum.  Every function takes a leading batch dimension
-written out (the JAX package's ``vmap``): (B, n, d) data and (B, k, d)
-centroids, so all M PQ subquantizers train in one set of batched ops.
+Assignment is a matmul-argmin (‖x‖² − 2x·c + ‖c‖²); the update sums each
+cluster's rows in a fixed order (a stable sort by assignment, then segment
+sums), so a seed gives the same centroids bit for bit on every run, on the
+card too (float atomics, as ``scatter_add_`` uses there, would not).
+Every function takes a leading batch dimension written out (the JAX
+package's ``vmap``): (B, n, d) data and (B, k, d) centroids, so all M PQ
+subquantizers train in one set of batched ops.
 k-means++ seeding samples the D² distribution with the Gumbel-max trick,
 one Python loop step per centroid (the JAX package's ``lax.scan``).
 
@@ -64,21 +67,31 @@ def _lloyd_iter(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
 
     Empty clusters keep their previous centroid.  Above B·n·k = 2²⁷ the
     rows are tiled, so the (B, n, k) distance matrix never exists whole;
-    partial (k, d) sums and (k,) counts accumulate across row tiles.
+    partial (k, d) sums and (k,) counts accumulate across row tiles, in
+    tile order.  Inside a tile the rows are stably sorted by (problem,
+    cluster) and each cluster's run is summed by ``torch.segment_reduce``,
+    whose order is fixed (one thread a sum on the card, no atomics): the
+    step is deterministic, where the JAX package's one-hot product is too.
     """
     if x.dim() == 2:
         return _lloyd_iter(x[None], centroids[None])[0]
     b, n, d = x.shape
     k = centroids.shape[1]
-    sums = torch.zeros((b, k, d), dtype=torch.float32, device=x.device)
-    counts = torch.zeros((b, k), dtype=torch.float32, device=x.device)
+    sums = torch.zeros((b * k, d), dtype=torch.float32, device=x.device)
+    counts = torch.zeros((b * k,), dtype=torch.int64, device=x.device)
+    offset = (torch.arange(b, device=x.device) * k)[:, None]
     row_tile = n if b * n * k <= _TILE_ELEMS else max(1024, _TILE_ELEMS // (b * k))
     for start in range(0, n, row_tile):
         xt = x[:, start:start + row_tile]
         a = torch.argmin(pairwise_sqdist_xc(xt, centroids), dim=-1)  # (B, t)
-        sums.scatter_add_(1, a[..., None].expand(-1, -1, d), xt)
-        counts.scatter_add_(1, a, torch.ones_like(a, dtype=torch.float32))
-    new_c = sums / torch.clamp(counts, min=1.0)[..., None]
+        key = (a + offset).reshape(-1)
+        order = torch.sort(key, stable=True).indices
+        lengths = torch.bincount(key, minlength=b * k)
+        sums += torch.segment_reduce(xt.reshape(-1, d)[order], "sum", lengths=lengths,
+                                     axis=0, unsafe=True, initial=0.0)
+        counts += lengths
+    counts = counts.reshape(b, k).to(torch.float32)
+    new_c = sums.reshape(b, k, d) / torch.clamp(counts, min=1.0)[..., None]
     return torch.where((counts > 0)[..., None], new_c, centroids)
 
 

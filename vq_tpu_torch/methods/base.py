@@ -117,6 +117,22 @@ class BaseQuantizer:
         have one."""
         raise NotImplementedError(f"{self.name} has no packed scan layout")
 
+    def residual_scorer(self):
+        """Optionally a CODE-SPACE window scorer for the IVF list scans
+        (``index/ivf.py``): a pair of functions
+
+            q_map(v (N, D)) → (v_cat (N, Dc) f32, v_add (N,) f32)
+                with v · decode(ct)[t] == v_cat · ô[t] + v_add for every
+                row t (a rotation into code space plus the constant
+                mean / centroid dot),
+            window(ct (T, row_bytes)) → (ô (T, Dc) f32, r2 (T,) f32)
+                with r2[t] == ‖decode(ct)[t]‖².
+
+        Rotation-based methods (SAQ, RaBitQ, RankAware) give one, so a list
+        scan rotates the queries and centroids once instead of un-rotating
+        every decoded window.  None: windows score through ``decode_fn``."""
+        return None
+
     @property
     def dim(self) -> Optional[int]:
         return self._dim

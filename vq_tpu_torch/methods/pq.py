@@ -51,7 +51,8 @@ def fit(x, cfg: PQConfig, seed: int = 0, device=None) -> PQParams:
 def encode_chunked(codebooks: torch.Tensor, x, rotation=None,
                    chunk: int = 65536) -> torch.Tensor:
     """Subspace argmin encode, row-chunked: (N, D) → (N, M) codes on the
-    codebooks' device (uint8 for K ≤ 256, else int32).
+    codebooks' device: uint8 for K ≤ 256, else uint16 (the JAX package's
+    dtypes, so codes, footprints and saved indexes match byte for byte).
 
     Peak memory is one chunk, not the corpus: rows are read chunk by chunk
     (a host corpus is moved one chunk at a time) and the last chunk is
@@ -63,7 +64,9 @@ def encode_chunked(codebooks: torch.Tensor, x, rotation=None,
     n, d = x.shape
     if d != m * dsub:
         raise ValueError(f"dim {d} != M·dsub = {m}·{dsub}")
-    dtype = torch.uint8 if kk <= 256 else torch.int32
+    if kk > 1 << 16:
+        raise ValueError(f"codebook size {kk} > 65536: codes would not fit uint16")
+    dtype = torch.uint8 if kk <= 256 else torch.uint16
     c2 = torch.sum(cb * cb, dim=-1)  # (M, K)
     chunk = max(1, min(chunk, _ENCODE_ELEMS // (m * kk)))
     out = torch.empty((n, m), dtype=dtype, device=cb.device)
@@ -77,7 +80,7 @@ def encode_chunked(codebooks: torch.Tensor, x, rotation=None,
 
 
 def encode(params: PQParams, x, chunk: int = 65536) -> torch.Tensor:
-    """(N, D) → (N, M) codes (uint8 for B ≤ 8)."""
+    """(N, D) → (N, M) codes (uint8 for B ≤ 8, uint16 above)."""
     return encode_chunked(params.codebooks, x, chunk=chunk)
 
 

@@ -330,6 +330,27 @@ class RaBitQ(BaseQuantizer):
                            prune=prune, tile_mask=tile_mask, mask_cap=mask_cap)
         return out[0], out[1]
 
+    def residual_scorer(self):
+        """Code-space window scorer (base contract): with ô = ŝ·(‖r‖·t/√D),
+        decode(ct) = ô·Pᵀ + c, so v·decode = (v·P)·ô + v·c and ‖decode‖² =
+        ‖c‖² + 2·(c·P)·ô + ‖ô‖²: no D×D rotation a window.  It follows
+        decode's reconstruction, not the flat scan's unbiased estimator."""
+        params, bits = self.params, self.cfg.num_bits
+        sqrt_d = math.sqrt(params.centroid.shape[0])
+        c_rot = params.centroid @ params.rotation
+        c_sq = torch.sum(params.centroid ** 2)
+
+        def q_map(v):
+            v = as_f32(v, params.centroid.device)
+            return v @ params.rotation, v @ params.centroid
+
+        def window(ct):
+            s_hat, nrm, t = _parse(params, ct, bits)
+            o = s_hat * (nrm * t / sqrt_d)[:, None]
+            return o, c_sq + 2.0 * (o @ c_rot) + torch.sum(o * o, dim=1)
+
+        return q_map, window
+
     def code_bytes_per_vector(self) -> float:
         return float(packed_bytes(self._dim, self.cfg.num_bits) + 8)
 

@@ -15,9 +15,8 @@
           ``use_packed=False`` or k > 128 takes the plain streaming scan.
 
 Not ported yet: the head-segment prune cascade (``prune_segments > 0``
-raises; it lost every measurement on the TPU and stays off), the IVF list
-scorer and the sharded cache (``residual_scorer``,
-``prepare_shard_cache``).
+raises; it lost every measurement on the TPU and stays off) and the
+sharded cache (``prepare_shard_cache``).
 """
 
 from __future__ import annotations
@@ -703,6 +702,31 @@ class SAQ(BaseQuantizer):
                            metric, num_valid=num_valid, use_bf16=use_bf16, prune=prune,
                            tile_mask=tile_mask, mask_cap=mask_cap)
         return out[0], out[1]
+
+    def residual_scorer(self):
+        """Code-space window scorer for the IVF list scans (base contract):
+        v·decode(ct) = q_map(v)_cat·ô + v·pca_mean and ‖decode(ct)‖² =
+        ‖mean‖² + 2·mean_cat·ô + ‖ô‖² (orthogonal rotations): windows need
+        only the per-segment dequant, not the segment and PCA un-rotations
+        that ``decode_fn`` pays a window."""
+        plan, params = self.plan, self.params
+        seg_ids = tuple(range(plan.num_segments))
+        mean_cat = torch.cat(_mean_segs(plan, params))
+        mean_sq = torch.sum(params.pca_mean ** 2)
+
+        def q_map(v):
+            q_cat, _, q_mean, _ = _packed_query_side(plan, params,
+                                                     as_f32(v, params.pca_mean.device), seg_ids)
+            return q_cat, q_mean
+
+        def window(ct):
+            o = torch.cat([
+                _seg_dequant(params, plan, s, unpack_bits(packed, plan.seg_bits[s],
+                                                          plan.seg_lens[s]), rescale)
+                for s, (packed, rescale, _nrm) in enumerate(_split_row(plan, ct))], dim=1)
+            return o, mean_sq + 2.0 * (o @ mean_cat) + torch.sum(o * o, dim=1)
+
+        return q_map, window
 
     def code_bytes_per_vector(self) -> float:
         return float(self.plan.code_bytes)
