@@ -84,21 +84,40 @@ Phases (any failure exits non-zero; nothing is caught):
    and the batch's union fraction; windows = union where separated at Q=8;
    a profile; then IvfPackedFlatIndex(RankAware bpd=2) at nprobe=50, whose
    gather launches must move.
+13. Sharded serving (``vq_tpu_torch/dist``) on a mesh of 4 shards on the
+   one card, with the corpora (remade from their seeds), fits and
+   single-device indexes of phases 4, 7, 10 and 12:
+   ShardedFlatPQIndex(PQ M=16) at k=10 / 100 (fused kernel) / 256 (score
+   kernel) = FlatQuantizedIndex (scores bit for bit, ids up to ties, each
+   id that differs rescored to its rank's score), at P=4 and at a ragged
+   P=3, overlap_chunks=4 = 1; ShardedPackedFlatIndex(SAQ bpd=2) at k=10 /
+   100 (f32 ids = the flat index's where separated, bf16 recall ≥ 0.99,
+   overlap_chunks=2 = 1, each shard's prune fraction, the overlap chunks'
+   factor copies); ShardedIvfPackedIndex(SAQ, fit(coarse=…)) at nprobe 50
+   = IvfPackedFlatIndex (as PQ); ShardedIVFIndex(phase 12's SAQ) = an
+   IvfQuantizedIndex on its centroids where separated; every search's
+   launches = P per kernel; dp_lloyd_step twice, bit-equal; the port's
+   dryrun_multichip(4); each index timed beside its single-device search,
+   profiles and the merge's time; with more than one card the PQ and SAQ
+   checks again on a mesh of one shard per card.
 
 Phases 6 and 9 hold a fifth configuration, RankAware bpd=2 (one segment
 per bit width, "perdim" and "values", no per-row scale: scale_col −1), and
 phase 6 its FFD packing once.
 
-The line before the last is a JSON object of the kernels (launches in
-phases 4 and 11 (fused), 7, 8 and 11 (packed), 10 and 12 (gather); errors
-and times from phases 3, 6 and 9; each
-kernel's bound, the least time the card could take for the timed call);
+The line before the last is a JSON object of the kernels: launches of
+phase 13's sharded searches (which run all four kernels), with each path's
+own count beside them (``launches_by_path``: each path's counters read
+just after it); errors and times from phases 3, 6 and 9; each kernel's
+bound, the least time the card could take for the timed call.  A
+``[launches] by path`` line before it holds the same counts by path;
 the card's name and power limit are printed before it, and the last line
 is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -125,6 +144,11 @@ PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12, "f32 add": 33.5e12}
 # agree within 1e-4 · (‖q‖² + 2·max‖x̂‖²), a per-query bound on |terms|
 F32_RTOL = 1e-4
 BF16_MIN_RECALL = 0.99
+# A row rescored in f32 beside a bf16 search's score: the search rounds the
+# query and the decoded values to bf16 (relative error ≤ 2^-9 each), so the
+# score's terms |2·q·x̂| + ‖x̂‖² ≤ ‖q‖² + 2·‖x̂‖² move by about 2^-8 of
+# their size; 2^-7 leaves a factor of two.
+BF16_RTOL = 2.0 ** -7
 
 
 def log(msg: str) -> None:
@@ -163,6 +187,11 @@ def require(cond: bool, what: str) -> None:
 def require_launched(counts: dict, what: str) -> None:
     """Every kernel of `counts` ({wrapper name: launches}) was launched."""
     require(all(v > 0 for v in counts.values()), f"{what}: {counts}")
+
+
+def require_launches(got: int, want: int, what: str) -> None:
+    """A launch counter moved by exactly `want`."""
+    require(got == want, f"{what}: {got} launches, {want} expected")
 
 
 # ---------------------------------------------------------------- bounds
@@ -599,9 +628,11 @@ def phase_main(torch, dev, n=1_000_000, d=1536, nq=1024, profile=True):
         log(f"[profile] N={codes.shape[0]} k=100 bf16 (CUDA events, median of 5): fused kernel "
             f"{t_fused:.3f} ms; score kernel + streaming top-k {t_two:.3f} ms; "
             f"pq_score_all over all rows {t_score:.3f} ms")
-    del x, q, index, pq
+    del x, q
     torch.cuda.empty_cache()
-    return launches
+    # phase 13 remakes the corpus from its seed and reuses the fit and index
+    return launches, dict(corpus=lambda: powerlaw_corpus(torch, n, d, nq, seed=0, dev=dev),
+                          pq=pq, index=index, gt=gt)
 
 
 # ---------------------------------------------------------------- phase 5
@@ -961,21 +992,27 @@ def rankaware_ffd(torch, dev, x, q, norms, m, packed):
 
 
 # ---------------------------------------------------------------- phase 7
-def timed_search(torch, index, q, k, gt, what):
-    """Warm-up, then the median of 3 host-clock searches; checks the result
-    and returns its ids."""
+def timed(torch, index, q, k, what):
+    """Warm-up, then the median of 3 host-clock searches → ((ids, scores),
+    ms a search); checks the result's shape, values and order."""
     index.search_with_scores(q, k)
     runs = [wall_s(torch, lambda: index.search_with_scores(q, k)) for _ in range(3)]
     ids, scores = runs[-1][0]
-    t = float(np.median([r[1] for r in runs]))
-    nq = q.shape[0]
-    require(ids.shape == (nq, k) and scores.shape == (nq, k), f"{what} k={k} result shape")
+    require(ids.shape == (q.shape[0], k) and scores.shape == (q.shape[0], k),
+            f"{what} k={k} result shape")
     require(bool(np.isfinite(scores).all()) and int(ids.max()) < index.num_rows,
             f"{what} k={k} result values")
     require(bool((np.diff(scores, axis=1) >= 0).all()), f"{what} k={k} not ascending")
+    return (ids, scores), float(np.median([r[1] for r in runs])) * 1e3
+
+
+def timed_search(torch, index, q, k, gt, what):
+    """``timed``, logged with recall against the ground truth; returns the
+    ids."""
+    (ids, _), ms = timed(torch, index, q, k, what)
     recalls = ", ".join(f"recall@{r} {recall(gt, ids, r):.4f}" for r in sorted({10, k}))
-    log(f"[{what}] search k={k}: {t * 1e3:.3f} ms/batch (median of 3, host clock), "
-        f"QPS {nq / t:.1f}, {recalls}")
+    log(f"[{what}] search k={k}: {ms:.3f} ms/batch (median of 3, host clock), "
+        f"QPS {q.shape[0] / ms * 1e3:.1f}, {recalls}")
     return ids
 
 
@@ -1028,7 +1065,10 @@ def phase_saq_main(torch, dev, n=1_048_576, d=1024, nq=256, profile=True):
     if profile:
         profile_search(torch, index, q, ks=(10,), tag=" SAQ")
     gather_table(torch, dev, saq, index.codes, index.norms, q)
-    del x, q, index, cache, gt_i
+    # phase 13 remakes the corpus from its seed and reuses the fit and index
+    ctx = dict(corpus=lambda: packed_corpus(torch, n, d, nq, 0, dev)[:2], saq=saq, index=index,
+               gt=gt)
+    del x, q, cache, gt_i
     torch.cuda.empty_cache()
 
     # banded prune corpus (bench.py:316-368): lognormal row scale, norm-
@@ -1061,7 +1101,7 @@ def phase_saq_main(torch, dev, n=1_048_576, d=1024, nq=256, profile=True):
     require(frac < 1.0, "the prune stage never fired on the banded corpus")
     del codes, cache, qb
     torch.cuda.empty_cache()
-    return launches + banded
+    return launches + banded, ctx
 
 
 def phase_rabitq_main(torch, dev, n=1_048_576, d=1024, nq=256):
@@ -1286,13 +1326,13 @@ def phase_ivf_main(torch, dev, n=1_048_576, d=1536, nq=256, k_cl=4096, nprobes=(
     corpus, queries, ground truth and the coarse pass."""
     from vq_tpu_torch import IVFConfig, KMeansConfig, Metric, RaBitQConfig, SAQConfig
     from vq_tpu_torch import SearchConfig
-    from vq_tpu_torch._device import bf16_supported, make_generator
+    from vq_tpu_torch._device import bf16_supported
     from vq_tpu_torch.data.sampling import chunk_rows_for_bytes, host_sample_rows
-    from vq_tpu_torch.index.ivf import chunked_assign
+    from vq_tpu_torch.index.ivf import chunked_assign, coarse_pass
     from vq_tpu_torch.index.ivf_packed import IvfPackedFlatIndex, tile_mask_from_probes
     from vq_tpu_torch.kernels import packed_scan as pk
     from vq_tpu_torch.kernels.adc import _finalize, exact_topk
-    from vq_tpu_torch.kernels.kmeans import kmeans, pairwise_sqdist_xc
+    from vq_tpu_torch.kernels.kmeans import pairwise_sqdist_xc
     from vq_tpu_torch.kernels.topk import ordered_topk
     from vq_tpu_torch.methods import saq as sq
     from vq_tpu_torch.methods.rabitq import RaBitQ
@@ -1304,13 +1344,9 @@ def phase_ivf_main(torch, dev, n=1_048_576, d=1536, nq=256, k_cl=4096, nprobes=(
     log(f"[phase 10] planted full-rank corpus N={n} D={d} Q={nq} on {dev}: {t_gen:.3f} s "
         f"({x.numel() * 4 / 1e9:.2f} GB); ground truth k={k} {t_gt:.3f} s")
     kmc = KMeansConfig(iters=10, max_points_per_centroid=64)
-    cap = min(n, max(200_000, kmc.max_points_per_centroid * k_cl))
-    def coarse_pass():
-        return kmeans(make_generator(kmc.seed, dev), host_sample_rows(x, cap, kmc.seed), k_cl,
-                      kmc)
-
-    cents, t_km = wall_s(torch, coarse_pass)
-    cents2, t_km2 = wall_s(torch, coarse_pass)
+    ivf_cfg = IVFConfig(k_cl, nprobes[0], kmc)
+    cents, t_km = wall_s(torch, lambda: coarse_pass(x, ivf_cfg, dev))
+    cents2, t_km2 = wall_s(torch, lambda: coarse_pass(x, ivf_cfg, dev))
     require(torch.equal(cents, cents2), "two coarse passes from one seed gave different "
                                         "centroids")
     log(f"[phase 10] coarse k-means K={k_cl} run twice from seed {kmc.seed}: centroids "
@@ -1320,12 +1356,12 @@ def phase_ivf_main(torch, dev, n=1_048_576, d=1536, nq=256, k_cl=4096, nprobes=(
     pk.reset_launch_counts()
     saq = sq.SAQ(SAQConfig(bits_per_dim=2.0, use_pca=True))  # no device: the corpus's
     _, t_qfit = wall_s(torch, lambda: saq.fit(host_sample_rows(x, 200_000, kmc.seed)))
-    index = IvfPackedFlatIndex(saq, IVFConfig(k_cl, nprobes[0], kmc), SearchConfig(use_bf16=True))
+    index = IvfPackedFlatIndex(saq, ivf_cfg, SearchConfig(use_bf16=True))
     _, t_fit = wall_s(torch, lambda: index.fit(x, coarse=(cents, asn)))
     require(index.cache.factors.device == x.device and index.cache.perm is None,
             "the IVF cache left the card or lost the rows' order")
     nb = index.cache.factors.shape[1] // 512
-    log(f"[phase 10] build: coarse k-means K={k_cl} on {min(cap, n)} rows {t_km:.3f} s; "
+    log(f"[phase 10] build: coarse k-means K={k_cl} {t_km:.3f} s; "
         f"assignment {t_asn:.3f} s; SAQ fit {t_qfit:.3f} s (plan bits {saq.plan.seg_bits}, "
         f"{saq.plan.code_bytes} code bytes/row); encode + pack {t_fit:.3f} s; {nb} tiles; "
         f"prune hint {index.cache.prune_hint}")
@@ -1397,10 +1433,10 @@ def phase_ivf_main(torch, dev, n=1_048_576, d=1536, nq=256, k_cl=4096, nprobes=(
         }
         log(f"[profile] IVF stages nprobe={nprobes[0]} Q={nq} (CUDA events, median of 5): "
             + "; ".join(f"{name} {cuda_ms(torch, fn):.3f} ms" for name, fn in stages.items()))
-    del index, rindex
+    del rindex
     torch.cuda.empty_cache()
     return launches["packed_scan_topk_gather"], dict(x=x, q=q, gt=gt, cents=cents, asn=asn,
-                                                     kmc=kmc)
+                                                     kmc=kmc, saq=saq, index=index)
 
 
 # ---------------------------------------------------------------- phase 11
@@ -1629,11 +1665,15 @@ def same_where_separated(torch, index, q, a, b, what):
     numpy, L2 ascending: scores within the f32 tolerance F32_RTOL·(‖q‖² +
     2·max‖x̂‖²), ids equal at every rank whose score is separated from its
     neighbours by more than it.  Returns (max |Δscore|, separated ranks)."""
+    xh = index.decompress(a[0].reshape(-1).astype(np.int64))
+    return where_separated(torch, q, float(torch.max(torch.sum(xh * xh, dim=1))), a, b, what)
+
+
+def where_separated(torch, q, xh_sq_max, a, b, what):
+    """``same_where_separated`` with max‖x̂‖² given."""
     ids_a, s_a = a
     ids_b, s_b = b
-    xh = index.decompress(ids_a.reshape(-1).astype(np.int64))
-    tol = F32_RTOL * (torch.sum(q * q, dim=1).cpu().numpy()[:, None]
-                      + 2.0 * float(torch.max(torch.sum(xh * xh, dim=1))))
+    tol = F32_RTOL * (torch.sum(q * q, dim=1).cpu().numpy()[:, None] + 2.0 * xh_sq_max)
     err = np.abs(s_a - s_b)
     require(bool((err <= tol).all()), f"{what}: scores differ by more than the f32 tolerance")
     gap = np.diff(s_a, axis=1)
@@ -1693,6 +1733,8 @@ def phase_ivf_residual(torch, dev, ctx, k_cl=4096, nprobes=(50, 200), nq_small=8
                 f"{ms:.3f} ms/search (CUDA events, median of 3), QPS {q.shape[0] / ms * 1e3:.1f}"
                 f"; rows in the batch's union {union_fraction(torch, index, q, nprobe):.4f}; "
                 f"{recalls}")
+            if tag.startswith("SAQ") and nprobe == nprobes[0]:  # what phase 13 reuses
+                ctx["residual"] = dict(saq=quant, recall=recall(gt, ids, k))
         index.ivf_cfg = dataclasses.replace(index.ivf_cfg, nprobe=nprobes[0])
         qs = q[:nq_small]
         u = index.search_with_scores(qs, k, strategy="union")
@@ -1734,6 +1776,318 @@ def phase_ivf_residual(torch, dev, ctx, k_cl=4096, nprobes=(50, 200), nq_small=8
     torch.cuda.empty_cache()
     return launches
 
+
+# ---------------------------------------------------------------- phase 13
+def same_up_to_ties(torch, q, decode, a, b, what) -> int:
+    """Two top-k results (ids, scores) as numpy that should be one: scores
+    bit for bit, and ids equal at every rank whose score ties neither
+    neighbour's, the k-th excepted.  Inside a run of equal scores two scans
+    may order the tied rows differently, and at the k-th pick another of
+    the rows that tie it (one the top-k does not show): the kernels break a
+    tie by the order rows reach the fold.  Where the ids differ, both rows
+    are rebuilt (``decode``: global ids → (n, D) rows on q's device) and
+    rescored by the direct difference ‖q − x̂‖²: each must score what its
+    rank reports, within BF16_RTOL·(‖q‖² + 2·‖x̂‖²).  Every query's first
+    row is rescored too, so the rescoring itself is held on every call.
+    Returns the ranks whose ids differ."""
+    (ia, sa), (ib, sb) = a, b
+    require(np.array_equal(sa, sb), f"{what}: scores differ")
+    tied = np.zeros(sa.shape, dtype=bool)
+    eq = sa[:, 1:] == sa[:, :-1]
+    tied[:, 1:] |= eq
+    tied[:, :-1] |= eq
+    tied[:, -1] = True
+    qd, rd = np.nonzero(ia != ib)
+    bad = np.argwhere((ia != ib) & ~tied)
+    require(len(bad) == 0, f"{what}: ids differ at untied ranks (query, rank) {bad[:5].tolist()}")
+    nq = ia.shape[0]
+    qi = np.concatenate([qd, qd, np.arange(nq)])
+    r = np.concatenate([rd, rd, np.zeros(nq, dtype=rd.dtype)])
+    xh = decode(np.concatenate([ia[qd, rd], ib[qd, rd], ia[:, 0]]).astype(np.int64))
+    qq = q[torch.as_tensor(qi, device=q.device)]
+    d2 = torch.sum((qq - xh) ** 2, dim=1).cpu().numpy()
+    tol = BF16_RTOL * (torch.sum(qq * qq, dim=1) + 2.0 * torch.sum(xh * xh, dim=1))
+    off = np.nonzero(np.abs(d2 - sa[qi, r]) > tol.cpu().numpy())[0]
+    require(len(off) == 0, f"{what}: a row rescored does not score its rank's score (query, "
+                           f"rank) {list(zip(qi[off][:5].tolist(), r[off][:5].tolist()))}")
+    return len(qd)
+
+
+def decode_codes(torch, quant, codes):
+    """Rows rebuilt by global id from a flat index's codes."""
+    return lambda ids: quant.decompress(codes[torch.as_tensor(ids, device=codes.device)])
+
+
+def decode_corpus(torch, quant, x):
+    """Rows rebuilt by global id by encoding the corpus's rows again (an
+    index that keeps only a packed cache)."""
+    return lambda ids: quant.decompress(quant.compress(x[torch.as_tensor(ids,
+                                                                         device=x.device)]))
+
+
+def beside(what, k, nq, ms, ms_single, single):
+    log(f"[phase 13] {what} k={k}: {ms:.3f} ms/search, QPS {nq / ms * 1e3:.1f} (host clock, "
+        f"median of 3); {single} {ms_single:.3f} ms, QPS {nq / ms_single * 1e3:.1f}; ratio "
+        f"{ms / ms_single:.3f}")
+
+
+def max_sq_norm(torch, decode, ids) -> float:
+    """max ‖x̂‖² over the rows ``ids`` (numpy), rebuilt by ``decode``."""
+    xh = decode(ids.reshape(-1).astype(np.int64))
+    return float(torch.max(torch.sum(xh * xh, dim=1)))
+
+
+KERNELS = ("pq_scan_topk_fused", "pq_score_all", "packed_scan_topk", "packed_scan_topk_gather")
+
+
+def launch_counts() -> dict:
+    """The four kernels' launch counters, by kernel."""
+    from vq_tpu_torch.kernels import packed_scan as pk
+    from vq_tpu_torch.kernels import pq_scan as ps
+
+    return dict(zip(KERNELS, (ps.pq_scan_topk_fused.launches, ps.pq_score_all.launches,
+                              pk.packed_scan_topk.launches,
+                              pk.packed_scan_topk.gather_launches)))
+
+
+@contextlib.contextmanager
+def counting(path: dict):
+    """Yields a dict that holds, when the block ends, the launches made in
+    it by kernel; they are added to ``path``, the launches of the path the
+    block drives (the launches of any other work stay out of it)."""
+    before, got = launch_counts(), {}
+    yield got
+    for name, n in launch_counts().items():
+        got[name] = n - before[name]
+        path[name] = path.get(name, 0) + got[name]
+
+
+def sharded_pq(torch, mesh, x, q, ctx, what, path, profile=True):
+    """ShardedFlatPQIndex(PQ M=16) on ``mesh`` against phase 4's flat index:
+    k=10 and 100 (the fused kernel, P launches a search), k=256 (the score
+    kernel), scores bit for bit and ids up to ties; overlap_chunks=4 = 1.
+    The sharded searches' launches are added to ``path``."""
+    from vq_tpu_torch.dist import ShardedFlatPQIndex
+    from vq_tpu_torch.dist.mesh import all_gather
+    from vq_tpu_torch.dist.sharded import sharded_scan_topk
+
+    flat, pq = ctx["index"], ctx["pq"]
+    n, nq, p_cnt = x.shape[0], q.shape[0], mesh.size
+    decode = decode_codes(torch, pq, flat.codes)
+    sidx, t_fit = wall_s(torch, lambda: ShardedFlatPQIndex(pq, flat.search_cfg, mesh).fit(x))
+    codes = all_gather(mesh, sidx.codes, dim=0)
+    require(torch.equal(codes[:n], flat.codes) and codes.shape[0] == -(-n // p_cnt) * p_cnt,
+            f"{what}: the shards' codes are not the flat index's")
+    log(f"[phase 13] {what}: ShardedFlatPQIndex fit (encode + shard) {t_fit:.3f} s; {p_cnt} "
+        f"shards of {sidx.codes[0].shape[0]} rows ({codes.shape[0] - n} pad rows)")
+    for k in (10, 100, 256):  # k ≤ 128: the fused kernel; 256: the score kernel
+        with counting(path) as got:
+            (ids, scores), ms = timed(torch, sidx, q, k, what)  # the warm-up and 3 searches
+        require_launches(got["pq_scan_topk_fused"], 4 * p_cnt if k <= 128 else 0,
+                         f"{what} k={k} fused, 4 searches")
+        if k > 128:
+            require_launched({"pq_score_all": got["pq_score_all"]}, f"{what} k={k}: the score "
+                                                                    f"kernel")
+        else:
+            require_launches(got["pq_score_all"], 0, f"{what} k={k} score kernel")
+        want, ms_flat = timed(torch, flat, q, k, "phase 4 flat")
+        tied = same_up_to_ties(torch, q, decode, (ids, scores), want,
+                               f"{what} k={k} vs FlatQuantizedIndex")
+        beside(f"{what} PQ M=16 Q={nq}", k, nq, ms, ms_flat, "FlatQuantizedIndex")
+        log(f"[phase 13] {what} k={k}: scores = FlatQuantizedIndex's bit for bit, ids equal at "
+            f"every untied rank ({tied} of {ids.size} ids differ, each at a tie, each rescored "
+            f"to its rank's score)")
+    cbs = [r.params.codebooks for r in sidx._replicas]
+    with counting(path) as got:
+        res = [sharded_scan_topk(mesh, q, sidx.codes, cbs, 10, true_n=n, overlap_chunks=c)
+               for c in (1, 4)]
+    fused = got["pq_scan_topk_fused"]
+    # a shard's rows split into the most chunks, at most 4, that divide them
+    chunks = next(c for c in (4, 3, 2, 1) if sidx.codes[0].shape[0] % c == 0)
+    require_launches(fused, p_cnt * (1 + chunks), f"{what} overlap_chunks 1 and {chunks}")
+    tied = same_up_to_ties(torch, q, decode,
+                           *[(i.cpu().numpy(), s.cpu().numpy()) for s, i in res],
+                           f"{what} overlap_chunks=4 vs 1")
+    log(f"[phase 13] {what}: {p_cnt} fused launches a search at k ≤ 128; overlap_chunks=4 = 1 "
+        f"up to ties ({tied} ids differ, each at a tie; {fused} launches for the two)")
+    if profile:
+        profile_search(torch, sidx, q, ks=(10,), tag=f" sharded PQ {what}")
+    return sidx
+
+
+def sharded_saq(torch, mesh, x, q, ctx, what, path, profile=True):
+    """ShardedPackedFlatIndex(SAQ bpd=2) on ``mesh`` against phase 7's flat
+    index at k=10 and 100: f32 ids equal where separated, bf16 recall ≥
+    BF16_MIN_RECALL, P packed launches a search, overlap_chunks=2 = 1.  The
+    sharded searches' launches are added to ``path``."""
+    from vq_tpu_torch.dist import ShardedPackedFlatIndex
+
+    flat, saq = ctx["index"], ctx["saq"]
+    nq, p_cnt = q.shape[0], mesh.size
+    decode = decode_codes(torch, saq, flat.codes)
+    bf16_cfg = flat.search_cfg
+    f32_cfg = dataclasses.replace(bf16_cfg, use_bf16=False)
+    sidx, t_fit = wall_s(torch, lambda: ShardedPackedFlatIndex(saq, bf16_cfg, mesh).fit(x))
+    log(f"[phase 13] {what}: ShardedPackedFlatIndex(SAQ bpd=2) fit (encode + per-shard "
+        f"norm-ordered pack) {t_fit:.3f} s; {p_cnt} shards of {sidx._n_loc} rows; prune hint "
+        f"{sidx.shards[0].prune_hint}")
+    for k in (10, 100):
+        with counting(path) as got:
+            (ids, scores), ms = timed(torch, sidx, q, k, what)  # the warm-up and 3 searches
+        require_launches(got["packed_scan_topk"], 4 * p_cnt, f"{what} k={k} packed, 4 searches")
+        (fids, _), ms_flat = timed(torch, flat, q, k, "phase 7 flat")
+        rec = recall(fids, ids, k)
+        require(rec >= BF16_MIN_RECALL, f"{what} k={k}: bf16 recall {rec} against the flat index")
+        with counting(path) as got:
+            two = sidx.search_with_scores(q, k, overlap_chunks=2)
+        require_launches(got["packed_scan_topk"], 2 * p_cnt, f"{what} k={k} overlap_chunks=2")
+        tied = same_up_to_ties(torch, q, decode, two, (ids, scores),
+                               f"{what} k={k} overlap_chunks=2 vs 1")
+        sidx.search_cfg, flat.search_cfg = f32_cfg, f32_cfg
+        with counting(path):
+            got32 = sidx.search_with_scores(q, k)
+        want = flat.search_with_scores(q, k)
+        sidx.search_cfg, flat.search_cfg = bf16_cfg, bf16_cfg
+        err, n_sep = where_separated(torch, q, max_sq_norm(torch, decode, want[0]), want, got32,
+                                     f"{what} k={k} f32")
+        beside(f"{what} SAQ bpd=2 Q={nq}", k, nq, ms, ms_flat, "FlatQuantizedIndex")
+        log(f"[phase 13] {what} k={k}: bf16 recall@{k} against the flat index {rec:.4f}; f32 "
+            f"max |Δscore| {err:.3e}, ids equal at {n_sep} separated ranks; {p_cnt} packed "
+            f"launches a search; overlap_chunks=2 = 1 up to ties ({tied} ids differ, each at a "
+            f"tie)")
+    if profile:
+        profile_search(torch, sidx, q, ks=(10,), tag=f" sharded SAQ {what}")
+    return sidx
+
+
+def phase_sharded(torch, dev, ctx4, ctx7, ctx10, shards=4, nprobe=50, profile=True):
+    """Sharded serving on one card: a mesh of ``shards`` shards on ``dev``
+    (and of 3, where phase 4's N is ragged), each index beside the
+    single-device index of the same phase on that phase's corpus, fits and
+    quantizers; then dp_lloyd_step twice (bit-equal) and the port's
+    dryrun_multichip; the PQ and SAQ checks again on a mesh of one shard
+    per card where there is more than one.  Returns the launches of the
+    sharded indexes' searches on the one card, by kernel: those of the
+    single-device searches they are held against, of the profiles, of the
+    per-shard prune read-out and of the dryrun's toy sizes are not in it."""
+    from vq_tpu_torch import IVFConfig, Metric, SearchConfig
+    from vq_tpu_torch.data.sampling import chunk_rows_for_bytes
+    from vq_tpu_torch.dist import ShardedIVFIndex, ShardedIvfPackedIndex, make_mesh
+    from vq_tpu_torch.dist.dryrun import dryrun_multichip
+    from vq_tpu_torch.dist.sharded import _fold, dp_lloyd_step
+    from vq_tpu_torch.dist.sharded_packed import chunk_of
+    from vq_tpu_torch.index.ivf import IvfQuantizedIndex, chunked_assign, coarse_sample
+    from vq_tpu_torch.kernels import packed_scan as pk
+    from vq_tpu_torch.methods import saq as sq
+
+    mesh = make_mesh(devices=[dev] * shards)
+    log(f"[phase 13] mesh of {shards} shards on {dev} (one process; devices may repeat)")
+    path = dict.fromkeys(KERNELS, 0)
+    x, q = ctx4["corpus"]()
+    spq = sharded_pq(torch, mesh, x, q, ctx4, f"P={shards}", path, profile)
+    sharded_pq(torch, make_mesh(devices=[dev] * 3), x, q, ctx4, "P=3 (ragged)", path, False)
+    del x
+    torch.cuda.empty_cache()
+    x7, q7 = ctx7["corpus"]()
+    ssaq = sharded_saq(torch, mesh, x7, q7, ctx7, f"P={shards}", path, profile)
+    del x7
+
+    x, q, gt, cents, asn, kmc = (ctx10[key] for key in ("x", "q", "gt", "cents", "asn", "kmc"))
+    k, k_cl, nq = 100, cents.shape[0], q.shape[0]
+    single = ctx10["index"]
+    single.ivf_cfg = dataclasses.replace(single.ivf_cfg, nprobe=nprobe)
+    sidx, t_fit = wall_s(torch, lambda: ShardedIvfPackedIndex(
+        ctx10["saq"], single.ivf_cfg, single.search_cfg, mesh).fit(x, coarse=(cents, asn)))
+    with counting(path) as got:
+        (ids, scores), ms = timed(torch, sidx, q, k, "sharded IVF-packed")
+    require_launches(got["packed_scan_topk_gather"], 4 * shards,
+                     "sharded IVF-packed gather, 4 searches")
+    want, ms_single = timed(torch, single, q, k, "phase 10 IVF-packed")
+    tied = same_up_to_ties(torch, q, decode_corpus(torch, ctx10["saq"], x), (ids, scores), want,
+                           "sharded IVF-packed vs IvfPackedFlatIndex")
+    log(f"[phase 13] P={shards} ShardedIvfPackedIndex(SAQ bpd=2) fit(coarse=…) {t_fit:.3f} s; "
+        f"nprobe={nprobe} Q={nq} k={k}: scores = IvfPackedFlatIndex's bit for bit, ids at "
+        f"every untied rank ({tied} ids differ, each at a tie); {shards} gather launches a "
+        f"search; recall@{k} {recall(gt, ids, k):.4f}")
+    beside(f"P={shards} IVF-packed SAQ nprobe={nprobe} Q={nq}", k, nq, ms, ms_single,
+           "IvfPackedFlatIndex")
+    del sidx
+
+    res = ctx10["residual"]
+    cfg = IVFConfig(k_cl, nprobe, kmc)
+    sivf, t_fit = wall_s(torch, lambda: ShardedIVFIndex(res["saq"], cfg, SearchConfig(),
+                                                        mesh).fit(x))
+    require(torch.equal(sivf.centroids, cents), "the sharded index's coarse pass differs from "
+                                                "phase 10's (one seed, one recipe)")
+    own_asn = chunked_assign(x, sivf.centroids, chunk_rows_for_bytes(x.shape[1]))
+    ref = IvfQuantizedIndex(res["saq"], cfg, SearchConfig()).fit(x, coarse=(sivf.centroids,
+                                                                            own_asn))
+    with counting(path):
+        got = sivf.search_with_scores(q, k)
+    want = ref.search_with_scores(q, k)
+    err, n_sep = same_where_separated(torch, ref, q, want, got,
+                                      "sharded IVF-residual vs IvfQuantizedIndex")
+    with counting(path):
+        ms = cuda_ms(torch, lambda: sivf.search_with_scores(q, k), reps=3, warmup=1)
+    ms_single = cuda_ms(torch, lambda: ref.search_with_scores(q, k), reps=3, warmup=1)
+    loads = [int((sivf.ids_sh[p] >= 0).sum()) for p in range(shards)]
+    log(f"[phase 13] P={shards} ShardedIVFIndex(SAQ bpd=2, phase 12's fit) build (coarse pass "
+        f"+ encode) {t_fit:.3f} s, centroids = phase 10's bit for bit, rows a shard {loads}; "
+        f"nprobe={nprobe} Q={nq} k={k} union: = IvfQuantizedIndex on its centroids where "
+        f"separated (max |Δscore| {err:.3e}, ids equal at {n_sep} separated ranks); "
+        f"recall@{k} {recall(gt, got[0], k):.4f} (phase 12: {res['recall']:.4f}); "
+        f"{ms:.3f} ms/search against {ms_single:.3f} (CUDA events, median of 3)")
+    del sivf, ref
+    log(f"[phase 13] launches of the sharded searches on {dev}: {path}")
+    require_launched(path, "a kernel of sharded serving never launched")
+
+    xs = coarse_sample(x, kmc, k_cl, dev)  # the coarse pass's training rows
+    xs = xs[: xs.shape[0] // shards * shards]
+    c1, t1 = wall_s(torch, lambda: dp_lloyd_step(mesh, xs, cents))
+    c2, t2 = wall_s(torch, lambda: dp_lloyd_step(mesh, xs, cents))
+    require(torch.equal(c1, c2), "two dp_lloyd_step runs differ")
+    log(f"[phase 13] dp_lloyd_step on {xs.shape[0]} rows, K={k_cl}, run twice: bit-equal "
+        f"({t1:.3f} s, {t2:.3f} s)")
+    del xs
+    dryrun_multichip(shards, device=dev.type)
+
+    # what the searches above do not show: each shard's prune stage, the
+    # factor-column copies of overlap chunks, the merge
+    for p, cache in enumerate(ssaq.shards):
+        _, _, cnt = sq._packed_scan(ctx7["saq"].plan, ctx7["saq"].params, q7, cache, 10,
+                                    Metric.L2, prune=True)
+        units = pk.prune_units(q7.shape[0], cache.factors.shape[1], dev)
+        log(f"[phase 13] sharded SAQ shard {p}: prune stage k=10 {int(cnt)}/{units} (query "
+            f"block, tile) pairs scanned = {int(cnt) / units:.4f}")
+    nf, n_loc = ssaq.shards[0].factors.shape
+    copies = cuda_ms(torch, lambda: [chunk_of(c, i, n_loc // 2) for c in ssaq.shards
+                                     for i in range(2)])
+    log(f"[profile] sharded SAQ overlap_chunks=2: the chunks' factor-column copies "
+        f"{copies:.3f} ms a search (CUDA events, median of 5; {shards} shards × ({nf}, "
+        f"{n_loc}) f32, {2 * shards * nf * n_loc * 4 / 1e6:.1f} MB read and written)")
+    for name, nqq in (("PQ", ctx4["gt"].shape[0]), ("SAQ", ctx7["gt"].shape[0])):
+        parts = [(torch.randn((nqq, 10), device=dev), torch.randint(
+            0, 1 << 20, (nqq, 10), device=dev, dtype=torch.int32)) for _ in range(shards)]
+        log(f"[profile] sharded {name} merge Q={nqq} k=10 P={shards}: "
+            f"{cuda_ms(torch, lambda: _fold(mesh, None, parts, 10)):.3f} ms (CUDA events, "
+            f"median of 5: the all-gather at the root and the ordered top-k)")
+    del spq, ssaq
+
+    if torch.cuda.device_count() > 1:
+        cards, per_card = make_mesh(), dict.fromkeys(KERNELS, 0)
+        x, q = ctx4["corpus"]()
+        sharded_pq(torch, cards, x, q, ctx4, f"one shard per card (P={cards.size})", per_card,
+                   False)
+        del x
+        x7, q7 = ctx7["corpus"]()
+        sharded_saq(torch, cards, x7, q7, ctx7, f"one shard per card (P={cards.size})",
+                    per_card, False)
+        del x7
+        log(f"[phase 13] launches of the sharded searches on one shard per card: {per_card}")
+    else:
+        log(f"[phase 13] one shard per card: not run ({torch.cuda.device_count()} card)")
+    torch.cuda.empty_cache()
+    return path
 
 
 def main() -> int:
@@ -1779,15 +2133,24 @@ def main() -> int:
     phase_decode_edges(torch, dev)
     phase_kernels(torch, dev, results)
     phase_packed_kernels(torch, dev, results)
-    launches = phase_main(torch, dev)
+    # each path's launches, its counters read just after it: phases 4-12
+    # each require their kernels to launch, the kernels line counts phase
+    # 13's (sharded serving) and lists every path's beside it
+    paths = {}
+    paths["phase 4 PQ flat"], pq_ctx = phase_main(torch, dev)
     phase_gate(torch, dev)
-    launches["packed_scan_topk"] = phase_saq_main(torch, dev) + phase_rabitq_main(torch, dev)
+    saq_launches, saq_ctx = phase_saq_main(torch, dev)
+    paths["phase 7 SAQ flat"] = {"packed_scan_topk": saq_launches}
+    paths["phase 8 RaBitQ flat"] = {"packed_scan_topk": phase_rabitq_main(torch, dev)}
     phase_gather_kernels(torch, dev, results)
-    launches["packed_scan_topk_gather"], ivf_ctx = phase_ivf_main(torch, dev)
-    for name, count in phase_quantizers(torch, dev).items():
-        launches[name] += count
-    launches["packed_scan_topk_gather"] += phase_ivf_residual(torch, dev, ivf_ctx)
-    del ivf_ctx
+    gather, ivf_ctx = phase_ivf_main(torch, dev)
+    paths["phase 10 IVF-packed"] = {"packed_scan_topk_gather": gather}
+    paths["phase 11 OPQ and RankAware flat"] = phase_quantizers(torch, dev)
+    paths["phase 12 IVF-packed RankAware"] = {
+        "packed_scan_topk_gather": phase_ivf_residual(torch, dev, ivf_ctx)}
+    paths["phase 13 sharded serving"] = phase_sharded(torch, dev, pq_ctx, saq_ctx, ivf_ctx)
+    del pq_ctx, saq_ctx, ivf_ctx
+    log(f"[launches] by path: {json.dumps(paths)}")
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "vq_tpu"))
     require(not leaked, f"JAX or JAX-package modules were imported: {leaked[:5]}")
 
@@ -1803,7 +2166,9 @@ def main() -> int:
         tk, tp = results[name]["times"][tag]
         bms, bby = results[name]["bounds"][tag]
         kernels.append({"name": name, "route": "cuda", "source": f"vq_tpu_torch/csrc/{src}",
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces,
+                        "launches": paths["phase 13 sharded serving"][name],
+                        "launches_by_path": {p: n[name] for p, n in paths.items() if name in n},
                         "max_abs_err": results[name]["max_abs_err"], "ms": tk,
                         "plain_ms": tp, "bound_ms": bms, "bound_by": bby, "library_ms": None})
     log(json.dumps({"kernels": kernels}))

@@ -18,6 +18,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as cs  # noqa: E402
+from vq_tpu_torch.kernels import packed_scan as pk  # noqa: E402
+from vq_tpu_torch.kernels import pq_scan as ps  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -33,6 +35,7 @@ def cpu_smoke(monkeypatch):
 
     monkeypatch.setattr(cs, "cuda_ms", host_ms)
     monkeypatch.setattr(cs, "require_launched", lambda counts, what: None)
+    monkeypatch.setattr(cs, "require_launches", lambda got, want, what: None)
     monkeypatch.setattr(cs, "BF16_MIN_RECALL", 0.9)
     monkeypatch.setattr(cs, "RECALL_GATE_PQ192_FLOOR", 0.5)
     return torch.device("cpu")
@@ -54,8 +57,9 @@ def test_phase_decode_edges_rehearsal(cpu_smoke):
 
 def test_phase_main_and_gate_rehearsal(cpu_smoke):
     # profile=False: torch.profiler records no device time on the CPU
-    launches = cs.phase_main(torch, cpu_smoke, n=1500, d=32, nq=8, profile=False)
+    launches, ctx = cs.phase_main(torch, cpu_smoke, n=1500, d=32, nq=8, profile=False)
     assert set(launches) == {"pq_scan_topk_fused", "pq_score_all"}
+    assert torch.equal(ctx["corpus"]()[0], ctx["corpus"]()[0])  # phase 13 remakes it
     cs.phase_gate(torch, cpu_smoke, n=400, d=192, nq=8)
 
 
@@ -85,7 +89,7 @@ def test_synthetic_packed_segments_are_not_multiples_of_16():
 
 
 def test_phase_packed_paths_rehearsal(cpu_smoke):
-    assert cs.phase_saq_main(torch, cpu_smoke, n=4000, d=128, nq=8, profile=False) == 0
+    assert cs.phase_saq_main(torch, cpu_smoke, n=4000, d=128, nq=8, profile=False)[0] == 0
     assert cs.phase_rabitq_main(torch, cpu_smoke, n=4000, d=128, nq=8) == 0
 
 
@@ -114,6 +118,24 @@ def test_phase_ivf_main_rehearsal(cpu_smoke, monkeypatch):
                                  pq_m=16) == 0
 
 
+def test_phase_sharded_rehearsal(cpu_smoke, monkeypatch):
+    """Phase 13 on a mesh of 4 CPU shards, on phases 4, 7, 10 and 12 run at
+    tiny sizes (N=2002 PQ at D=32, ragged at P=3, N=4000 SAQ at D=128, the IVF corpus of
+    N=6000 at D=64 with K=32, nprobe 8)."""
+    monkeypatch.setattr(cs, "profile_search", lambda *a, **k: None)
+    monkeypatch.setattr(cs, "union_host_split", lambda *a, **k: None)
+    _, pq_ctx = cs.phase_main(torch, cpu_smoke, n=2002, d=32, nq=8, profile=False)
+    _, saq_ctx = cs.phase_saq_main(torch, cpu_smoke, n=4000, d=128, nq=8, profile=False)
+    _, ivf_ctx = cs.phase_ivf_main(torch, cpu_smoke, n=6000, d=64, nq=16, k_cl=32,
+                                   nprobes=(8,), nq_small=4, profile=False)
+    cs.phase_ivf_residual(torch, cpu_smoke, ivf_ctx, k_cl=32, nprobes=(8,), nq_small=4,
+                          pq_m=16, profile=False)
+    launches = cs.phase_sharded(torch, cpu_smoke, pq_ctx, saq_ctx, ivf_ctx, nprobe=8,
+                                profile=False)
+    assert launches == {"pq_scan_topk_fused": 0, "pq_score_all": 0, "packed_scan_topk": 0,
+                        "packed_scan_topk_gather": 0}
+
+
 def test_phase_quantizers_rehearsal(cpu_smoke):
     """Phase 11 at N=3000: OPQ M=16 at D=64 (2 iterations), RankAware, SQ
     and LVQ at D=64."""
@@ -135,6 +157,50 @@ def test_same_where_separated_holds_ids_only_where_scores_part():
     assert err == 0.0 and sep == 2
     with pytest.raises(AssertionError, match="ids differ"):
         cs.same_where_separated(torch, Index(), q, (ids, s), (ids[:, ::-1].copy(), s), "order")
+
+
+def test_same_up_to_ties_holds_ids_only_at_untied_ranks():
+    """Rows on one axis at √d from q = 0, so row i scores d_i; rows 4 and 5
+    tie, as do 6 and 7; row 8 does not score the k-th's 0.5."""
+    d = {3: 0.1, 4: 0.2, 5: 0.2, 6: 0.5, 7: 0.5, 8: 0.9}
+    rows = torch.zeros((9, 4))
+    for i, v in d.items():
+        rows[i, 0] = v ** 0.5
+    q = torch.zeros((1, 4))
+
+    def decode(ids):
+        return rows[torch.as_tensor(ids)]
+
+    def same(other, what):
+        return cs.same_up_to_ties(torch, q, decode, (ids, s), (np.array([other], np.uint32), s),
+                                  what)
+
+    s = np.array([[0.1, 0.2, 0.2, 0.5]], np.float32)
+    ids = np.array([[3, 4, 5, 6]], np.uint32)
+    assert same([3, 5, 4, 6], "tie") == 2
+    assert same([3, 4, 5, 7], "k-th") == 1  # the k-th may tie a row the top-k leaves out
+    with pytest.raises(AssertionError, match="untied"):
+        same([2, 4, 5, 6], "id")
+    with pytest.raises(AssertionError, match="rescored"):
+        same([3, 4, 5, 8], "a k-th that does not tie")
+    with pytest.raises(AssertionError, match="scores differ"):
+        cs.same_up_to_ties(torch, q, decode, (ids, s), (ids, s + np.float32(1e-7)), "score")
+    with pytest.raises(AssertionError, match="rescored"):  # the first rank, always rescored
+        cs.same_up_to_ties(torch, q, decode, (ids, s + 0.05), (ids, s + 0.05), "shifted")
+
+
+def test_counting_adds_a_blocks_launches_to_its_path():
+    path = dict.fromkeys(cs.KERNELS, 0)
+    with cs.counting(path) as got:
+        ps.pq_scan_topk_fused.launches += 2
+        pk.packed_scan_topk.gather_launches += 1
+    with cs.counting(path):
+        pk.packed_scan_topk.gather_launches += 3
+    assert got == {"pq_scan_topk_fused": 2, "pq_score_all": 0, "packed_scan_topk": 0,
+                   "packed_scan_topk_gather": 1}
+    assert path == {**got, "packed_scan_topk_gather": 4}
+    ps.reset_launch_counts()
+    pk.reset_launch_counts()
 
 
 def test_bounds_are_the_larger_of_bytes_and_operations():

@@ -363,3 +363,83 @@ def test_kmeans_is_deterministic_on_the_card(dev):
     xs = x.reshape(20000, 4, 8).transpose(0, 1)
     assert torch.equal(kmeans_batched(make_generator(1, dev), xs, 64, cfg),
                        kmeans_batched(make_generator(1, dev), xs, 64, cfg))
+
+
+def test_sharded_indexes_route_through_the_kernels_on_one_card(dev):
+    """A mesh of 4 shards on one card: each sharded search launches its
+    kernel once a shard (fused PQ at k ≤ 128, the score kernel above,
+    packed, gather), the residual sharded IVF none; PQ equals the flat
+    index bit for bit, everything stays on the card."""
+    from vq_tpu_torch import SearchConfig
+    from vq_tpu_torch.dist import (ShardedFlatPQIndex, ShardedIVFIndex, ShardedIvfPackedIndex,
+                                   ShardedPackedFlatIndex, make_mesh)
+
+    mesh = make_mesh(devices=["cuda"] * 4)
+    assert mesh.root.index is not None and mesh.distinct() == (mesh.root,)
+    x = torch.randn((6001, 64), generator=torch.Generator(dev).manual_seed(12), device=dev)
+    pq = PQ(PQConfig(8, 8, KMeansConfig(iters=3))).fit(x)
+    flat = FlatQuantizedIndex(pq).fit(x)
+    spq = ShardedFlatPQIndex(pq, mesh=mesh).fit(x)
+    assert all(c.is_cuda for c in spq.codes)
+    for k in (10, 100):
+        want = flat.search_with_scores(x[:9], k)
+        ps.reset_launch_counts()
+        got = spq.search_with_scores(x[:9], k)
+        assert (ps.pq_scan_topk_fused.launches, ps.pq_score_all.launches) == (4, 0)
+        assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+    ps.reset_launch_counts()
+    spq.search_with_scores(x[:9], 200)
+    assert ps.pq_scan_topk_fused.launches == 0 and ps.pq_score_all.launches >= 4
+    saq = SAQ(SAQConfig(bits_per_dim=2.0, block_dims=16))
+    spk = ShardedPackedFlatIndex(saq, SearchConfig(), mesh).fit(x)
+    assert all(c.factors.is_cuda and c.perm.is_cuda for c in spk.shards)
+    pk.reset_launch_counts()
+    ids, _ = spk.search_with_scores(x[:9], 10)
+    assert ids.shape == (9, 10) and int(ids.max()) < 6001
+    assert pk.packed_scan_topk.launches == 4
+    sivf = ShardedIvfPackedIndex(saq, IVFConfig(16, 3, KMeansConfig(iters=3)), mesh=mesh).fit(x)
+    sivf.search_with_scores(x[:9], 10)
+    assert (pk.packed_scan_topk.gather_launches, pk.packed_scan_topk.launches) == (4, 4)
+    ivf = ShardedIVFIndex(SQ(SQConfig(8)), IVFConfig(16, 3, KMeansConfig(iters=3)),
+                          mesh=mesh).fit(x)
+    ps.reset_launch_counts()
+    ids, _ = ivf.search_with_scores(x[:9], 10)
+    assert ids.shape == (9, 10) and all(c.is_cuda for c in ivf.codes_sh)
+    assert ps.pq_scan_topk_fused.launches == 0 and pk.packed_scan_topk.gather_launches == 4
+
+
+def test_kernels_launch_on_their_tensors_card_not_the_current_one(dev):
+    """Tensors on cuda:1 while cuda:0 is current: every kernel launches on
+    cuda:1 (its attributes, occupancy and launch under the tensors' device)
+    and returns what the same call on cuda:0 returns, bit for bit."""
+    from vq_tpu_torch.methods import saq as saq_mod
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    d0, d1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    torch.cuda.set_device(d0)
+    q, codes, cb = _inputs(d0)
+    x = torch.randn((6000, 64), generator=torch.Generator(d0).manual_seed(13), device=d0)
+    sq = SAQ(SAQConfig(bits_per_dim=2.0, block_dims=16))
+    cache = FlatQuantizedIndex(sq).fit(x)._scan_cache
+    a0 = saq_mod.packed_scan_args(sq.plan, sq.params, x[:9], cache, 10, Metric.L2)
+    mask = (torch.arange(cache.factors.shape[1] // 512, device=d0) % 2).to(torch.int32)
+    want = [ps.pq_scan_topk_fused(q, codes, cb, 10), ps.pq_score_all(q, codes, cb),
+            pk.packed_scan_topk(**a0), pk.packed_scan_topk(**a0, tile_mask=mask)]
+
+    def on1(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(d1)
+        if isinstance(v, tuple):
+            return tuple(on1(t) for t in v)
+        return v
+
+    a1 = {key: on1(v) for key, v in a0.items()}
+    got = [ps.pq_scan_topk_fused(*on1((q, codes, cb)), 10),
+           ps.pq_score_all(*on1((q, codes, cb))), pk.packed_scan_topk(**a1),
+           pk.packed_scan_topk(**a1, tile_mask=mask.to(d1))]
+    torch.cuda.synchronize(d1)
+    assert torch.cuda.current_device() == 0
+    for g, w in zip(got, want):
+        for gt, wt in zip(g if isinstance(g, tuple) else (g,), w if isinstance(w, tuple) else (w,)):
+            assert gt.device == d1 and torch.equal(gt.cpu(), wt.cpu())

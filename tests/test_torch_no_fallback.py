@@ -2,7 +2,8 @@
 
 * ``vq_tpu_torch`` never imports jax nor any module of the JAX package
   ``vq_tpu`` (checked in a fresh interpreter after driving the Flat,
-  residual-IVF and IVF-packed searches with every quantizer).
+  residual-IVF and IVF-packed searches with every quantizer, and the
+  sharded indexes on a mesh of CPU shards).
 * The card is the default: asking for ``cuda``, or for no device with host
   data, without a card raises; nothing falls back to the CPU.
 * A quantizer built without a device takes a tensor corpus's device; a
@@ -11,7 +12,13 @@
 * The kernel build raises when ``nvcc`` is missing.
 * A CPU tensor runs the plain versions and leaves the launch counters at 0
   (the PQ kernels and the packed-code kernel of SAQ / RaBitQ, dense and
-  gather).
+  gather; the sharded indexes on a mesh of CPU shards).
+* Every kernel wrapper enters its tensors' device before it touches the
+  library, so its attribute, occupancy and launch calls go to that card
+  (``torch.cuda.device`` and the library are stood in for here).
+* A mesh is of the card by default (``make_mesh()`` without one raises),
+  and a quantizer with no packed shard or tile cache is refused by the
+  sharded packed indexes, never served by the generic scan instead.
 """
 
 import subprocess
@@ -75,6 +82,20 @@ for q in (PQ(PQConfig(4, 4, KMeansConfig(iters=2)), **cpu), RankAware(RankAwareC
     for strategy in ("union", "windows"):
         ids, _ = ivf.search_with_scores(x[:5], 3, strategy=strategy)
         assert ids.shape == (5, 3), ids.shape
+from vq_tpu_torch.dist import (ShardedFlatIndex, ShardedFlatPQIndex, ShardedIVFIndex,
+                               ShardedIvfPackedIndex, ShardedPackedFlatIndex, dp_lloyd_step,
+                               make_mesh)
+mesh = make_mesh(devices=["cpu"] * 3)
+for index in (ShardedFlatPQIndex(PQ(PQConfig(4, 4, KMeansConfig(iters=2)), **cpu), mesh=mesh),
+              ShardedFlatIndex(SQ(SQConfig(4), **cpu), mesh=mesh),
+              ShardedPackedFlatIndex(SAQ(SAQConfig(2.0, block_dims=8), **cpu), mesh=mesh),
+              ShardedIVFIndex(RankAware(RankAwareConfig(2.0), **cpu),
+                              IVFConfig(8, 2, KMeansConfig(iters=2)), mesh=mesh),
+              ShardedIvfPackedIndex(RaBitQ(RaBitQConfig(2), **cpu),
+                                    IVFConfig(8, 2, KMeansConfig(iters=2)), mesh=mesh)):
+    ids = index.fit(x).search(x[:5], 3)
+    assert ids.shape == (5, 3), ids.shape
+assert dp_lloyd_step(mesh, x, x[:8]).shape == (8, 16)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "vq_tpu"))
 assert not loaded, loaded
@@ -199,6 +220,92 @@ def test_packed_wrapper_refuses_other_devices():
                             metric_kind="ip")
 
 
+def test_kernel_wrappers_enter_their_tensors_device_before_the_library(monkeypatch):
+    """The CUDA runtime launches on the current device: both PQ kernels and
+    the packed kernel (dense and gather) enter their tensors' device, here
+    ``cuda:1`` (namespaces stand in for its tensors), before they ask for
+    the library."""
+    from types import SimpleNamespace
+
+    stack, seen = [], []
+
+    class Guard:  # stands in for torch.cuda.device
+        def __init__(self, dev):
+            self.dev = torch.device(dev)
+
+        def __enter__(self):
+            stack.append(self.dev)
+
+        def __exit__(self, *exc):
+            stack.pop()
+
+    class Reached(Exception):
+        pass
+
+    def library():
+        seen.append(list(stack))
+        raise Reached
+
+    monkeypatch.setattr(torch.cuda, "device", Guard)
+    monkeypatch.setattr(_build, "load_library", library)
+    monkeypatch.setattr(ps, "_check_inputs", lambda *a, **k: None)
+    monkeypatch.setattr(pk, "_check_inputs", lambda *a, **k: None)
+    card1 = torch.device("cuda", 1)
+    t = SimpleNamespace(device=card1, shape=(4, 256, 8))
+    for call in (lambda: ps.pq_scan_topk_fused(t, t, t, 10),
+                 lambda: ps.pq_score_all(t, t, t),
+                 lambda: pk.packed_scan_topk(t, t, (), t, (), (), 10),
+                 lambda: pk.packed_scan_topk(t, t, (), t, (), (), 10, tile_mask=t)):
+        with pytest.raises(Reached):
+            call()
+    assert seen == [[card1]] * 4 and not stack
+
+
 def test_base_quantizer_has_no_packed_scan():
     with pytest.raises(NotImplementedError, match="packed"):
         PQ(PQConfig(4, 4)).packed_scan_raw(None, None, 5, Metric.L2)
+
+
+def test_mesh_without_a_card_raises(monkeypatch):
+    from vq_tpu_torch.dist import make_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for kw in ({}, {"n_devices": 1}, {"devices": ["cuda"] * 2}):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make_mesh(**kw)
+    assert make_mesh(devices=["cpu"] * 2).root == torch.device("cpu")
+
+
+def test_sharded_packed_indexes_refuse_a_quantizer_without_a_packed_cache():
+    """PQ and SQ have no packed layout: the sharded packed indexes raise
+    (the JAX package's RuntimeError), nothing drops to the generic scan."""
+    from vq_tpu_torch.dist import ShardedIvfPackedIndex, ShardedPackedFlatIndex, make_mesh
+
+    x = np.random.default_rng(2).standard_normal((1100, 16)).astype(np.float32)
+    mesh = make_mesh(devices=["cpu"] * 2)
+    for q in (PQ(PQConfig(4, 4, KMeansConfig(iters=2)), device="cpu"),
+              SQ(SQConfig(8), device="cpu")):
+        with pytest.raises(RuntimeError, match="no packed shard cache"):
+            ShardedPackedFlatIndex(q, mesh=mesh).fit(x)
+        with pytest.raises(RuntimeError, match="no packed tile cache"):
+            ShardedIvfPackedIndex(q, IVFConfig(4, 1, KMeansConfig(iters=2)), mesh=mesh).fit(x)
+
+
+def test_sharded_indexes_on_cpu_shards_launch_no_kernel():
+    from vq_tpu_torch import SearchConfig
+    from vq_tpu_torch.dist import (ShardedFlatPQIndex, ShardedIvfPackedIndex,
+                                   ShardedPackedFlatIndex, make_mesh)
+
+    x = np.random.default_rng(3).standard_normal((2100, 16)).astype(np.float32)
+    mesh = make_mesh(devices=["cpu"] * 4)
+    ps.reset_launch_counts()
+    pk.reset_launch_counts()
+    ShardedFlatPQIndex(PQ(PQConfig(4, 4, KMeansConfig(iters=2)), device="cpu"),
+                       mesh=mesh).fit(x).search(x[:4], 10)
+    for q in (SAQ(SAQConfig(2.0, block_dims=8), device="cpu"), RaBitQ(RaBitQConfig(2),
+                                                                      device="cpu")):
+        ShardedPackedFlatIndex(q, SearchConfig(), mesh).fit(x).search(x[:4], 10)
+        ShardedIvfPackedIndex(q, IVFConfig(4, 1, KMeansConfig(iters=2)),
+                              mesh=mesh).fit(x).search(x[:4], 5)
+    assert ps.pq_scan_topk_fused.launches == ps.pq_score_all.launches == 0
+    assert pk.packed_scan_topk.launches == pk.packed_scan_topk.gather_launches == 0

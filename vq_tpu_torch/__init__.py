@@ -20,6 +20,8 @@ counterpart's path and public functions so the two are easy to compare:
     index/flat.py       ← vq_tpu/index/flat.py
     index/ivf.py        ← vq_tpu/index/ivf.py         residual IVF index
     index/ivf_packed.py ← vq_tpu/index/ivf_packed.py  probed-tile IVF index
+    dist/               ← vq_tpu/dist                 sharded serving over a
+                          single-process mesh of (possibly repeated) devices
     convert.py          JAX-package state (as numpy) → port state
 
 The port imports torch and never jax, nor anything of the JAX package: what
@@ -43,9 +45,19 @@ from vq_tpu_torch.core.config import (
     SearchConfig,
     SQConfig,
 )
+from vq_tpu_torch.dist import (
+    ShardedFlatIndex,
+    ShardedFlatPQIndex,
+    ShardedIVFIndex,
+    ShardedIvfPackedIndex,
+    ShardedPackedFlatIndex,
+    make_mesh,
+)
 
 __version__ = "0.1.0"
 
 __all__ = ["IVFConfig", "KMeansConfig", "LVQConfig", "Metric", "OPQConfig", "PQConfig",
            "RaBitQConfig", "RankAwareConfig", "SAQConfig", "SearchConfig", "SQConfig",
-           "bf16_supported", "resolve_device"]
+           "ShardedFlatIndex", "ShardedFlatPQIndex", "ShardedIVFIndex",
+           "ShardedIvfPackedIndex", "ShardedPackedFlatIndex", "bf16_supported",
+           "make_mesh", "resolve_device"]

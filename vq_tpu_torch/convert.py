@@ -17,6 +17,13 @@ entry point of the port, each function puts its tensors on the card unless
     index = ivf_packed_index_from_numpy(saq, np.asarray(jax_index.centroids), ...)
     ra = rankaware_from_numpy(params, jax_ra.bits, jax_ra.layout, jax_ra.cfg)
     index = ivf_index_from_numpy(quantizer, np.asarray(jax_ivf.centroids), ...)
+
+The sharded indexes go onto a port mesh (``dist.make_mesh``) of the JAX
+mesh's size: ``sharded_packed_index_from_state(quantizer, jax_index._state(),
+mesh)`` and ``sharded_ivf_packed_index_from_state`` take the JAX index's
+``_state()`` dict (its stacked per-shard leaves; the pickled JAX quantizer
+in it is not read), ``sharded_ivf_index_from_numpy`` its lists and routing
+tables, ``sharded_flat_*`` its codes and norms.
 """
 
 from __future__ import annotations
@@ -40,6 +47,11 @@ from vq_tpu_torch.core.config import (
 )
 from vq_tpu_torch._device import resolve_device
 from vq_tpu_torch.core.ffd import FFDLayout
+from vq_tpu_torch.dist.mesh import put
+from vq_tpu_torch.dist.sharded_index import ShardedFlatIndex, ShardedFlatPQIndex
+from vq_tpu_torch.dist.sharded_ivf import ShardedIVFIndex
+from vq_tpu_torch.dist.sharded_ivf_packed import ShardedIvfPackedIndex
+from vq_tpu_torch.dist.sharded_packed import ShardedPackedFlatIndex, check_num_shards
 from vq_tpu_torch.index.flat import FlatQuantizedIndex
 from vq_tpu_torch.index.ivf import IvfQuantizedIndex
 from vq_tpu_torch.index.ivf_packed import IvfPackedFlatIndex
@@ -256,4 +268,72 @@ def ivf_index_from_numpy(quantizer, centroids: np.ndarray, codes_sorted: np.ndar
     index._assignment = _tensor(assignment, dev, np.int32)
     index.max_cluster = int(np.max(sizes))
     index.num_rows = int(len(assignment))
+    return index
+
+
+# ------------------------------------------------------------------ sharded
+def sharded_flat_pq_index_from_numpy(codebooks: np.ndarray, codes: np.ndarray,
+                                     norms: np.ndarray, num_rows: int, search_cfg, pq_cfg,
+                                     mesh) -> ShardedFlatPQIndex:
+    """A JAX ``ShardedFlatPQIndex``'s codes and norms (``np.asarray`` of the
+    sharded arrays: padded rows included, cut here at ``num_rows``) and PQ
+    codebooks → a port index on ``mesh``, re-padded and sharded there."""
+    pq = pq_from_numpy(codebooks, config_from_jax(pq_cfg), device=mesh.root)
+    index = ShardedFlatPQIndex(pq, config_from_jax(search_cfg), mesh)
+    index.add_sharded(np.asarray(codes)[:num_rows], np.asarray(norms)[:num_rows], num_rows)
+    return index
+
+
+def sharded_flat_index_of(quantizer, codes: np.ndarray, norms: np.ndarray, num_rows: int,
+                          search_cfg, mesh) -> ShardedFlatIndex:
+    """A JAX ``ShardedFlatIndex``'s codes and norms (cut at ``num_rows``) over
+    a fitted port quantizer → a port index on ``mesh``."""
+    index = ShardedFlatIndex(quantizer, config_from_jax(search_cfg), mesh)
+    index._install(np.asarray(codes)[:num_rows], np.asarray(norms)[:num_rows], num_rows)
+    return index
+
+
+def _port_stacked(state: dict) -> dict:
+    """A JAX sharded packed ``_state()``: factors (P, n_loc, F) → (P, F, n_loc)."""
+    return {**state, "factors": np.ascontiguousarray(np.swapaxes(state["factors"], 1, 2))}
+
+
+def sharded_packed_index_from_state(quantizer, state: dict, mesh) -> ShardedPackedFlatIndex:
+    """A JAX ``ShardedPackedFlatIndex._state()`` over the fitted port
+    ``quantizer`` → a port index on ``mesh`` (of the same shard count)
+    holding the same per-shard caches."""
+    check_num_shards(state, mesh)
+    index = ShardedPackedFlatIndex(quantizer, config_from_jax(state["search_cfg"]), mesh)
+    index._load_stacked(_port_stacked(state))
+    return index
+
+
+def sharded_ivf_packed_index_from_state(quantizer, state: dict, mesh) -> ShardedIvfPackedIndex:
+    """A JAX ``ShardedIvfPackedIndex._state()`` over the fitted port
+    ``quantizer`` → a port index on ``mesh`` (of the same shard count):
+    the same centroids, per-shard caches, row ids and tile cluster ranges."""
+    check_num_shards(state, mesh)
+    index = ShardedIvfPackedIndex(quantizer, config_from_jax(state["ivf_cfg"]),
+                                  config_from_jax(state["search_cfg"]), mesh)
+    index._load_stacked(_port_stacked(state))
+    return index
+
+
+def sharded_ivf_index_from_numpy(quantizer, mesh, centroids: np.ndarray, codes_sh: np.ndarray,
+                                 ids_sh: np.ndarray, norms_sh: np.ndarray, shard_of: np.ndarray,
+                                 local_off: np.ndarray, sizes: np.ndarray, num_rows: int,
+                                 ivf_cfg=None, search_cfg=None) -> ShardedIVFIndex:
+    """A JAX ``ShardedIVFIndex``'s state (``np.asarray`` of ``codes_sh``,
+    ``ids_sh``, ``norms_sh``: (P, rows, …) blocks; the (K,) ``shard_of``,
+    ``local_off`` and ``sizes``; the centroids) over the fitted port
+    ``quantizer`` → a port index on ``mesh``, shard p's block on its
+    device."""
+    index = ShardedIVFIndex(quantizer, config_from_jax(ivf_cfg or _config.IVFConfig()),
+                            config_from_jax(search_cfg or SearchConfig()), mesh)
+    devs = mesh.devices
+    index.centroids = _tensor(centroids, mesh.root)
+    index._install([put(np.asarray(c), d) for c, d in zip(codes_sh, devs)],
+                   [put(np.asarray(i, np.int32), d) for i, d in zip(ids_sh, devs)],
+                   [put(np.asarray(n, np.float32), d) for n, d in zip(norms_sh, devs)],
+                   shard_of, local_off, sizes, num_rows)
     return index

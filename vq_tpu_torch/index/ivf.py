@@ -149,14 +149,16 @@ def _masked_ids_to_zero(run_s, run_i):
 
 def scan_probed_lists(q, probes, centroids, codes_sorted, ids_sorted, norms_sorted, offsets,
                       sizes, decode_fn, k: int, metric: Metric, chunk: int = 512,
-                      scorer_window=None, q_side=None, c_side=None):
+                      probe_mask=None, scorer_window=None, q_side=None, c_side=None):
     """Scan each (query, probe) pair's list in ``chunk``-row windows →
     maximize-form (scores (Q, k), global ids (Q, k)).
 
     The loop stops at the largest list this batch probes (one host read);
     peak memory is the (Q, P, chunk) decoded window.  probes (Q, P) int.
     A window slice past a list's end reads (clamped) rows that the size
-    mask drops.
+    mask drops.  probe_mask (Q, P) bool disables probes: a masked probe's
+    list counts as empty (the sharded IVF index masks the lists other
+    shards hold).
 
     scorer_window + q_side + c_side take the code-space path
     (``methods/base.residual_scorer``): q_side = q_map(queries), c_side =
@@ -173,6 +175,8 @@ def scan_probed_lists(q, probes, centroids, codes_sorted, ids_sorted, norms_sort
     q_cent = torch.einsum("qd,qpd->qp", q, cp)
     starts = offsets.long()[probes]
     szs = sizes.long()[probes]
+    if probe_mask is not None:
+        szs = torch.where(probe_mask, szs, torch.zeros_like(szs))
     max_sz = int(szs.max()) if szs.numel() else 0
     if scorer_window is not None:
         q_cat, q_add = q_side
@@ -231,7 +235,8 @@ def _probed_sqdist(q, centroids, probes):
 
 def scan_union_lists(q, probes, cd, centroids, codes_sorted, ids_sorted, norms_sorted, offsets,
                      sizes, decode_fn, k: int, metric: Metric, chunk: int = 8192,
-                     scorer_window=None, q_side=None, c_side=None, q_valid=None):
+                     probe_mask=None, scorer_window=None, q_side=None, c_side=None,
+                     q_valid=None):
     """QUERY-SHARED union scan of the probed lists → maximize-form (scores
     (Q, k), global ids (Q, k)).
 
@@ -244,7 +249,9 @@ def scan_union_lists(q, probes, cd, centroids, codes_sorted, ids_sorted, norms_s
     table of squared distances: for L2 its probed entries are recomputed
     from the direct difference (the expansion loses accuracy when norms
     dwarf the distances), in probe slabs; for IP/NIP the q·c table derives
-    from it.  Pad queries (``q_valid`` False) add no lists to the union.
+    from it.  Pad queries (``q_valid`` False) add no lists to the union;
+    neither do the probes ``probe_mask`` (Q, P) bool disables, which are
+    folded into the membership mask.
     """
     num_q = q.shape[0]
     dev = q.device
@@ -252,7 +259,7 @@ def scan_union_lists(q, probes, cd, centroids, codes_sorted, ids_sorted, norms_s
     probes = probes.long()
     qi = torch.arange(num_q, device=dev)[:, None].expand_as(probes)
     allowed = torch.zeros((num_q, kc), dtype=torch.bool, device=dev)
-    allowed[qi, probes] = True
+    allowed[qi, probes] = True if probe_mask is None else probe_mask
     if q_valid is not None:
         allowed &= q_valid[:, None]
     union = torch.any(allowed, dim=0)
@@ -298,6 +305,24 @@ def scan_union_lists(q, probes, cd, centroids, codes_sorted, ids_sorted, norms_s
     return _masked_ids_to_zero(run_s, run_i)
 
 
+def coarse_sample(X, kcfg, k: int, device) -> torch.Tensor:
+    """The coarse pass's training rows: max(200,000, max_points_per_centroid
+    · k) of X's rows (all of them when fewer), sampled on the host from
+    ``kcfg.seed`` → f32 on ``device``."""
+    cap = min(X.shape[0], max(200_000, kcfg.max_points_per_centroid * k))
+    return as_f32(host_sample_rows(X, cap, kcfg.seed), device)
+
+
+def coarse_pass(X, ivf_cfg: IVFConfig, device) -> torch.Tensor:
+    """The coarse k-means of every IVF index of the port: min(num_clusters,
+    N // 2) centroids trained on ``coarse_sample`` → (k, D) f32 on
+    ``device``, so one seed gives every index the same centroids."""
+    kcfg = ivf_cfg.kmeans
+    k = min(ivf_cfg.num_clusters, max(1, X.shape[0] // 2))
+    return kmeans(make_generator(kcfg.seed, device), coarse_sample(X, kcfg, k, device), k,
+                  kcfg).contiguous()
+
+
 class IvfQuantizedIndex(BaseSearchIndex):
     """IVF over any quantizer of the port, residuals per cluster."""
 
@@ -339,14 +364,10 @@ class IvfQuantizedIndex(BaseSearchIndex):
         if coarse is not None:
             self.centroids = as_f32(coarse[0], dev).contiguous()
             assignment = to_device(torch.as_tensor(coarse[1]), dev).to(torch.int32)
-            k = self.centroids.shape[0]
         else:
-            k = min(self.ivf_cfg.num_clusters, max(1, n // 2))
-            cap = min(n, max(200_000, kcfg.max_points_per_centroid * k))
-            xs = as_f32(host_sample_rows(X, cap, kcfg.seed), dev)
-            self.centroids = kmeans(make_generator(kcfg.seed, dev), xs, k, kcfg).contiguous()
-            del xs
+            self.centroids = coarse_pass(X, self.ivf_cfg, dev)
             assignment = chunked_assign(X, self.centroids, chunk)
+        k = self.centroids.shape[0]
         if self.quantizer.params is None:
             fit_quantizer_on_residuals(X, assignment, self.centroids, self.quantizer,
                                        seed=kcfg.seed)

@@ -30,13 +30,13 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from vq_tpu_torch._device import as_f32, bf16_supported, make_generator, to_device
+from vq_tpu_torch._device import as_f32, bf16_supported, to_device
 from vq_tpu_torch.core.config import IVFConfig, SearchConfig
 from vq_tpu_torch.data.sampling import chunk_rows_for_bytes, host_sample_rows
 from vq_tpu_torch.index.base import BaseSearchIndex, nbytes_of
-from vq_tpu_torch.index.ivf import chunked_assign, encode_rows_ordered
+from vq_tpu_torch.index.ivf import chunked_assign, coarse_pass, encode_rows_ordered
 from vq_tpu_torch.kernels.adc import _finalize
-from vq_tpu_torch.kernels.kmeans import kmeans, pairwise_sqdist_xc
+from vq_tpu_torch.kernels.kmeans import pairwise_sqdist_xc
 from vq_tpu_torch.kernels.packed_scan import TILE, PackedCorpus
 from vq_tpu_torch.kernels.topk import ordered_topk
 from vq_tpu_torch.methods.base import BaseQuantizer, tree_leaves
@@ -114,11 +114,7 @@ class IvfPackedFlatIndex(BaseSearchIndex):
             self.centroids = as_f32(coarse[0], dev).contiguous()
             assignment = to_device(torch.as_tensor(coarse[1]), dev).to(torch.int32)
         else:
-            k = min(self.ivf_cfg.num_clusters, max(1, n // 2))
-            cap = min(n, max(200_000, kcfg.max_points_per_centroid * k))
-            xs = as_f32(host_sample_rows(X, cap, kcfg.seed), dev)
-            self.centroids = kmeans(make_generator(kcfg.seed, dev), xs, k, kcfg).contiguous()
-            del xs
+            self.centroids = coarse_pass(X, self.ivf_cfg, dev)
             assignment = chunked_assign(X, self.centroids, chunk)
         order = torch.argsort(assignment, stable=True)
         if self.quantizer.params is None:

@@ -61,20 +61,18 @@ def _random_init(gen: torch.Generator, x: torch.Tensor, k: int) -> torch.Tensor:
     return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[2]))
 
 
-def _lloyd_iter(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
-    """One Lloyd iteration, (B, n, d) × (B, k, d) → (B, k, d); 2-D inputs
-    are one problem.
+def lloyd_partials(x: torch.Tensor, centroids: torch.Tensor):
+    """The sums of one Lloyd iteration, (B, n, d) × (B, k, d) → ((B·k, d)
+    f32 per-cluster row sums, (B·k,) int64 counts), in a fixed order.
 
-    Empty clusters keep their previous centroid.  Above B·n·k = 2²⁷ the
-    rows are tiled, so the (B, n, k) distance matrix never exists whole;
-    partial (k, d) sums and (k,) counts accumulate across row tiles, in
-    tile order.  Inside a tile the rows are stably sorted by (problem,
-    cluster) and each cluster's run is summed by ``torch.segment_reduce``,
-    whose order is fixed (one thread a sum on the card, no atomics): the
-    step is deterministic, where the JAX package's one-hot product is too.
+    Above B·n·k = 2²⁷ the rows are tiled, so the (B, n, k) distance matrix
+    never exists whole; partial sums and counts accumulate across row
+    tiles, in tile order.  Inside a tile the rows are stably sorted by
+    (problem, cluster) and each cluster's run is summed by
+    ``torch.segment_reduce``, whose order is fixed (one thread a sum on the
+    card, no atomics): the sums are deterministic, where the JAX package's
+    one-hot product is too.
     """
-    if x.dim() == 2:
-        return _lloyd_iter(x[None], centroids[None])[0]
     b, n, d = x.shape
     k = centroids.shape[1]
     sums = torch.zeros((b * k, d), dtype=torch.float32, device=x.device)
@@ -90,9 +88,25 @@ def _lloyd_iter(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
         sums += torch.segment_reduce(xt.reshape(-1, d)[order], "sum", lengths=lengths,
                                      axis=0, unsafe=True, initial=0.0)
         counts += lengths
+    return sums, counts
+
+
+def lloyd_update(sums: torch.Tensor, counts: torch.Tensor,
+                 centroids: torch.Tensor) -> torch.Tensor:
+    """New (B, k, d) centroids from ``lloyd_partials``' sums and counts; an
+    empty cluster keeps its previous centroid."""
+    b, k, d = centroids.shape
     counts = counts.reshape(b, k).to(torch.float32)
     new_c = sums.reshape(b, k, d) / torch.clamp(counts, min=1.0)[..., None]
     return torch.where((counts > 0)[..., None], new_c, centroids)
+
+
+def _lloyd_iter(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
+    """One Lloyd iteration, (B, n, d) × (B, k, d) → (B, k, d); 2-D inputs
+    are one problem.  Deterministic: the sums of ``lloyd_partials``."""
+    if x.dim() == 2:
+        return _lloyd_iter(x[None], centroids[None])[0]
+    return lloyd_update(*lloyd_partials(x, centroids), centroids)
 
 
 def _kmeans_impl(gen: torch.Generator, x: torch.Tensor, k: int, cfg: KMeansConfig,

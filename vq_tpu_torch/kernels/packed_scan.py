@@ -445,10 +445,23 @@ def packed_scan_topk(q_cat, qa, words, factors, lv_tables, segs, k: int,
                                       tile_stats, qprune, tile_mask, mask_cap)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    from vq_tpu_torch.kernels._build import check, load_library
-
     _check_inputs(q_cat, qa, words, factors, lv_tables, segs, k, metric_kind, family,
                   norm_col, r2_cols, prune, tile_stats, qprune, tile_mask)
+    # the CUDA runtime launches (and answers occupancy queries) on the
+    # current device: the mask compaction, the scan and the merge run under
+    # the tensors' own
+    with torch.cuda.device(dev):
+        return _launch(q_cat, qa, words, factors, lv_tables, segs, k, family, metric_kind,
+                       norm_col, r2_cols, limit, use_bf16, prune, tile_stats, qprune,
+                       tile_mask)
+
+
+def _launch(q_cat, qa, words, factors, lv_tables, segs, k, family, metric_kind, norm_col,
+            r2_cols, limit, use_bf16, prune, tile_stats, qprune, tile_mask):
+    """``packed_scan_topk`` on checked CUDA inputs, under their device."""
+    from vq_tpu_torch.kernels._build import check, load_library
+
+    dev = factors.device
     lib = load_library()
     if len(segs) > lib.vq_packed_max_segments():
         raise ValueError(f"{len(segs)} segments > {lib.vq_packed_max_segments()}")

@@ -160,7 +160,16 @@ def _plan(lib, sms: int, route: str, m: int, kk: int, k: int, num_q: int, n: int
 def _scan(queries, codes, codebooks, k: int, l2: bool, limit: Optional[int], use_bf16: bool,
           route: str):
     """Launch one route's kernels on checked CUDA inputs: k = 0 gives
-    ``pq_score_all``'s (Q, N) scores, else ``pq_scan_topk_fused``'s top-k."""
+    ``pq_score_all``'s (Q, N) scores, else ``pq_scan_topk_fused``'s top-k.
+    The CUDA runtime launches (and sets kernel attributes and answers
+    occupancy queries) on the current device, so the whole call runs under
+    the tensors' device."""
+    with torch.cuda.device(codes.device):
+        return _scan_on_device(queries, codes, codebooks, k, l2, limit, use_bf16, route)
+
+
+def _scan_on_device(queries, codes, codebooks, k: int, l2: bool, limit: Optional[int],
+                    use_bf16: bool, route: str):
     from vq_tpu_torch.kernels._build import check, load_library
 
     if route == "decode" and not use_bf16:

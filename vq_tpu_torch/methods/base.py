@@ -100,6 +100,15 @@ class BaseQuantizer:
         None means "scan the stored rows directly"."""
         return None
 
+    def prepare_shard_cache(self, codes, norms=None, num_queries=8, num_valid_rows=None):
+        """A PER-SHARD packed scan layout for the sharded packed index
+        (``dist/sharded_packed.py``): like ``prepare_scan``, but rows ≥
+        ``num_valid_rows`` are pad rows (each shard holds an equal-size
+        block whose tail may be padding), kept maskable by a scan-time
+        ``num_valid == num_valid_rows`` prefix limit.  None: this method has
+        no packed layout (the sharded packed index then raises)."""
+        return None
+
     def prepare_tile_cache(self, codes, norms=None, num_queries=8):
         """An ORDER-PRESERVING packed scan layout (``perm is None``: rows stay
         in the caller's order) for tile-masked scans: the probed-tile IVF

@@ -317,6 +317,11 @@ class RaBitQ(BaseQuantizer):
         """The PackedCorpus scan cache (unsorted), built once at index fit."""
         return prepare_packed(self.params, codes, self.cfg.num_bits, norms=norms)
 
+    def prepare_shard_cache(self, codes, norms=None, num_queries=8, num_valid_rows=None):
+        """The per-shard cache (base contract): unsorted, so the pad rows stay
+        at the tail for the ``num_valid`` prefix limit."""
+        return self.prepare_scan(codes, norms=norms, num_queries=num_queries)
+
     def prepare_tile_cache(self, codes, norms=None, num_queries=8):
         """The order-preserving layout (base contract): the scan layout is
         already unsorted."""

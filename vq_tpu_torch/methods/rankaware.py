@@ -402,6 +402,11 @@ class RankAware(BaseQuantizer):
         return prepare_packed(self.params, self.bits, self.layout, codes, self.cfg.packing,
                               norms=norms)
 
+    def prepare_shard_cache(self, codes, norms=None, num_queries=8, num_valid_rows=None):
+        """The per-shard cache (base contract): unsorted, so the pad rows stay
+        at the tail for the ``num_valid`` prefix limit."""
+        return self.prepare_scan(codes, norms=norms, num_queries=num_queries)
+
     def prepare_tile_cache(self, codes, norms=None, num_queries=8):
         """The order-preserving layout (base contract): the scan cache is
         already unsorted."""

@@ -15,8 +15,7 @@
           ``use_packed=False`` or k > 128 takes the plain streaming scan.
 
 Not ported yet: the head-segment prune cascade (``prune_segments > 0``
-raises; it lost every measurement on the TPU and stays off) and the
-sharded cache (``prepare_shard_cache``).
+raises; it lost every measurement on the TPU and stays off).
 """
 
 from __future__ import annotations
@@ -689,6 +688,13 @@ class SAQ(BaseQuantizer):
         fit), so the variance prune can fire.  ``num_queries`` sized the
         TPU's VMEM gate; the card's kernel takes any batch."""
         return prepare_packed(self.plan, self.params, codes, norms=norms, sort_rows=True)
+
+    def prepare_shard_cache(self, codes, norms=None, num_queries=8, num_valid_rows=None):
+        """The per-shard cache (base contract): norm-ordered within the shard,
+        so the variance prune composes with sharding, with the pad rows
+        sorted to the tail so the ``num_valid`` prefix limit stays exact."""
+        return prepare_packed(self.plan, self.params, codes, norms=norms, sort_rows=True,
+                              num_valid_rows=num_valid_rows)
 
     def prepare_tile_cache(self, codes, norms=None, num_queries=8):
         """The order-preserving layout (base contract): no norm-ordering, no
