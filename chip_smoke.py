@@ -101,15 +101,41 @@ Phases (any failure exits non-zero; nothing is caught):
    profiles and the merge's time; with more than one card the PQ and SAQ
    checks again on a mesh of one shard per card.
 
+14. The harness and CLI (``vq_tpu_torch.cli.main`` in this process, so the
+   launch counters see its kernels) on the card, each step's logged rows
+   read back (SQLite, CSV, .npy) and its kernels required: precompute-gt
+   on planted-1000000x1536 (= the Dataset's ground truth, and = a plain
+   ``torch.cdist`` over the rows for every 16th query where separated);
+   run PQ M=16 at k=256 (the fused kernel for the recall search, the score
+   kernel for ``measure_qps``); sweep PQ M=16 + SAQ bpd=2 (fused and packed
+   kernels); ivf-bench saq_ivf_packed + pq_flat at bpd 1, K=4096, nprobe
+   50 (gather kernel; PQ M=192 on the fused kernel's decode route; every
+   row's ``error`` empty); streaming-sweep PQ on dummy-262144x1536; run PQ
+   M=192 on planted-100000x1536 (recall@10 ≥ 0.763); study (pq, ours,
+   saq_paper at bpd 1 and 2 on fvecs files of planted-100000x1536: the
+   packed kernel's NIP path); not plot (no matplotlib on the card's
+   machine, ``PLOT_ON_CARD``); then ``python -m vq_tpu_torch run`` in a
+   subprocess.  Every kernel call a step makes is recorded (one per
+   launch), and each distinct shape is held against its plain version on
+   the same inputs after the step (f32 ids where separated; bf16 scores
+   for PQ, recall for the packed kernel).  The sweep's PQ M=16
+   configuration runs once more outside the CLI, through
+   ``run_single_config`` with its callees timed (``[profile] harness``
+   lines: each callee's seconds and host→card copies); its recall@10 and
+   the logged ones of run and sweep must equal, bit for bit, that of a
+   FlatQuantizedIndex the phase builds on the same dataset from the same
+   seed without the harness.
+
 Phases 6 and 9 hold a fifth configuration, RankAware bpd=2 (one segment
 per bit width, "perdim" and "values", no per-row scale: scale_col −1), and
 phase 6 its FFD packing once.
 
 The line before the last is a JSON object of the kernels: launches of
-phase 13's sharded searches (which run all four kernels), with each path's
+phase 14's CLI steps (which run all four kernels), with each path's
 own count beside them (``launches_by_path``: each path's counters read
-just after it); errors and times from phases 3, 6 and 9; each kernel's
-bound, the least time the card could take for the timed call.  A
+just after it); errors from phases 3, 6, 9 and 14, times from 3, 6 and
+9; each kernel's bound, the least time the card could take for the timed
+call.  A
 ``[launches] by path`` line before it holds the same counts by path;
 the card's name and power limit are printed before it, and the last line
 is ``{"ok": true, "device": {...}}``.
@@ -266,19 +292,11 @@ def powerlaw_corpus(torch, n, d, nq, seed, dev):
 
 def planted_corpus(torch, n, d, nq, seed, dev, rank=32, csize=10, spread=0.5):
     """bench.py:196-215: a rank-32 manifold in D with 10-row near-duplicate
-    neighbourhoods, unit-normalized rows."""
-    g = torch.Generator(device=dev).manual_seed(seed)
-    kc = n // csize
-    a = torch.randn((rank, d), generator=g, device=dev)
-    a = a * (1.0 + torch.arange(d, device=dev)) ** -0.5
-    cents = torch.randn((kc, rank), generator=g, device=dev)
-    z = cents[torch.arange(n, device=dev) % kc] + spread * torch.randn(
-        (n, rank), generator=g, device=dev)
-    qdoc = torch.randint(0, kc, (nq,), generator=g, device=dev)
-    zq = cents[qdoc] + spread * torch.randn((nq, rank), generator=g, device=dev)
-    x, q = z @ a, zq @ a
-    return (x / torch.linalg.norm(x, dim=1, keepdim=True),
-            q / torch.linalg.norm(q, dim=1, keepdim=True))
+    neighbourhoods, unit-normalized rows (the port's ``planted-NxD``
+    generator, ``data/datasets.py::planted_arrays``)."""
+    from vq_tpu_torch.data.datasets import planted_arrays
+
+    return planted_arrays(n, d, nq, rank, csize, spread, seed, dev)
 
 
 def random_codebooks(torch, x, m, kk, seed):
@@ -2090,6 +2108,456 @@ def phase_sharded(torch, dev, ctx4, ctx7, ctx10, shards=4, nprobe=50, profile=Tr
     return path
 
 
+# ---------------------------------------------------------------- phase 14
+# The H100 machine this script is run on has pandas and yaml but no
+# matplotlib (`import matplotlib` fails there).  So `study` runs on the card
+# (without --plot it needs only pandas) and `plot` does not; the CPU tests
+# run both.
+PLOT_ON_CARD = False
+# the query count of ``load_planted_dataset`` (and so of ``get_dataset``'s
+# planted-NxD): the direct build draws the same rows and queries
+PLANTED_QUERIES = 1024
+
+
+def harness_steps(tmp, device, n, d, nq, n_gate, n_stream, clusters, nprobe, plot):
+    """Phase 14's CLI steps in order: (name, argv of ``vq_tpu_torch.cli.main``,
+    the kernels the step must launch on the card).  ``tmp`` holds the runs
+    database, the outputs and the study's fvecs files."""
+    big, db, dv = f"planted-{n}x{d}", ["--db-path", os.path.join(tmp, "runs.db")], [
+        "--device", device]
+    steps = [
+        ("precompute-gt", ["precompute-gt", "--dataset", big, "--k", "100", "--output",
+                           os.path.join(tmp, "gt.npy"), *dv], ()),
+        ("run PQ M=16 k=256", ["run", "--dataset", big, "--method", "pq", "--param", "M=16",
+                               "--k", "256", "--num-queries", str(nq), *db, *dv],
+         ("pq_scan_topk_fused", "pq_score_all")),
+        ("sweep PQ M=16 + SAQ bpd=2", ["sweep", "--dataset", big, "--methods", "pq", "saq",
+                                       "--pq-subquantizers", "16", "--bpd", "2", "--k", "10",
+                                       "--num-queries", str(nq), *db, *dv],
+         ("pq_scan_topk_fused", "packed_scan_topk")),
+        ("ivf-bench", ["ivf-bench", "--dataset", big, "--methods", "saq_ivf_packed", "pq_flat",
+                       "--bpd", "1", "--num-clusters", str(clusters), "--nprobe", str(nprobe),
+                       "--k", "100", "--output", os.path.join(tmp, "ivf", "ivf.csv"), *dv],
+         ("packed_scan_topk_gather", "pq_scan_topk_fused")),
+        ("streaming-sweep", ["streaming-sweep", "--dataset", f"dummy-{n_stream}x{d}",
+                             "--methods", "pq", "--train-size", str(n_stream // 4),
+                             "--batch-size", str(n_stream // 4), *db, *dv], ()),
+        (f"run PQ M={d // 8}", ["run", "--dataset", f"planted-{n_gate}x{d}", "--method", "pq",
+                                "--param", f"M={d // 8}", "--k", "10", "--num-queries",
+                                str(nq), *db, *dv], ("pq_scan_topk_fused",)),
+        ("study", ["study", "--base", os.path.join(tmp, "base.fvecs"), "--queries",
+                   os.path.join(tmp, "query.fvecs"), "--methods", "pq", "ours", "saq_paper",
+                   "--bpd", "1,2", "--output-dir", os.path.join(tmp, "study"), *dv],
+         ("packed_scan_topk",)),
+    ]
+    if plot:
+        steps.append(("plot", ["plot", *db, "--output-dir", os.path.join(tmp, "plots")], ()))
+    return steps
+
+
+def read_csv(directory):
+    """The rows of the one CSV file in ``directory``."""
+    import csv
+
+    (name,) = [f for f in os.listdir(directory) if f.endswith(".csv")]
+    with open(os.path.join(directory, name), newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def harness_profile(torch, dev, n, d, nq, profile):
+    """The sweep's PQ M=16 configuration on planted-{n}x{d}, through the
+    harness's own functions, ``get_dataset`` and
+    ``bench/sweep.py::run_single_config``, their callees timed to a
+    synchronised end by shims for this one call (``[profile] harness``
+    lines); with ``profile``, each callee under torch.profiler (device
+    activity only), which also counts its host→card copies: it records the
+    256 MB chunks that compress streams, but not always a whole 6.1 GB
+    corpus copied in one piece, whose time the lone copy's line gives on
+    the host clock.  Returns the dataset, the call's metrics and that lone
+    copy (the corpus on the card)."""
+    from unittest import mock
+
+    from vq_tpu_torch.bench import sweep
+    from vq_tpu_torch.data import datasets
+
+    rows, build, flat = [], sweep.build_quantizer, sweep.FlatQuantizedIndex
+
+    def step(name, fn):
+        copies = ""
+        if profile:
+            from torch.profiler import ProfilerActivity
+            from torch.profiler import profile as prof_ctx
+
+            with prof_ctx(activities=[ProfilerActivity.CUDA]) as prof:
+                out, s = wall_s(torch, fn)
+            h2d = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.name.startswith("Memcpy HtoD")]
+            copies = (f"; torch.profiler recorded {len(h2d)} host→card copies, "
+                      f"{sum(e.device_time for e in h2d) / 1e3:.3f} ms on the card")
+        else:
+            out, s = wall_s(torch, fn)
+        rows.append((name, s))
+        log(f"[profile] harness {name}: {s:.3f} s{copies}")
+        return out
+
+    def timed(name, f):
+        return lambda *a, **kw: step(name, lambda: f(*a, **kw))
+
+    def quantizer(*a, **kw):
+        model = build(*a, **kw)
+        model.fit = timed("fit", model.fit)
+        return model
+
+    searches = []
+
+    def index(*a, **kw):
+        idx = flat(*a, **kw)
+        idx.fit = timed("index fit (compress + norms)", idx.fit)
+        search = idx.search_with_scores
+
+        def first_search(queries, k=10):  # the recall search; measure_qps's are one step
+            searches.append(k)
+            if len(searches) > 1:
+                return search(queries, k=k)
+            return step(f"recall search k={k}", lambda: search(queries, k=k))
+        idx.search_with_scores = first_search
+        return idx
+
+    shims = {(datasets, "planted_arrays"): timed("dataset generation (planted_arrays on the "
+                                                  "card)", datasets.planted_arrays),
+             (datasets, "compute_ground_truth"): timed(
+                 "ground truth (corpus host→card + exact scan)", datasets.compute_ground_truth),
+             (sweep, "build_quantizer"): quantizer, (sweep, "FlatQuantizedIndex"): index,
+             (sweep, "time_compress"): timed("compress (time_compress)", sweep.time_compress),
+             (sweep, "time_decompress"): timed("decompress sample (time_decompress)",
+                                               sweep.time_decompress),
+             (sweep, "measure_qps"): timed("measure_qps k=10 (1 + 3 searches)",
+                                           sweep.measure_qps)}
+    for fn in ("compute_distortion", "reconstruction_mse", "compute_pairwise_distortion",
+               "compute_rank_distortion", "recall_at_k"):
+        shims[(sweep, fn)] = timed(f"host metric {fn}", getattr(sweep, fn))
+    with contextlib.ExitStack() as stack:
+        for (mod, name), shim in shims.items():
+            stack.enter_context(mock.patch.object(mod, name, shim))
+        data, s = wall_s(torch, lambda: datasets.get_dataset(f"planted-{n}x{d}", device=dev))
+        rest = s - sum(t for _, t in rows)
+        rows.append(("card→host copy (the rest of get_dataset)", rest))
+        log(f"[profile] harness card→host copy of the corpus (the rest of get_dataset): "
+            f"{rest:.3f} s")
+        metrics = sweep.run_single_config(data, "pq", {"M": 16}, k=10, num_queries=nq,
+                                          log=False, device=dev)
+    total = sum(s for _, s in rows)
+    host = sum(s for name, s in rows if name.startswith("host metric"))
+    x_dev = step("one host→card copy of the corpus alone",
+                 lambda: torch.from_numpy(data.vectors).to(dev))
+    log(f"[profile] harness host metrics in all: {host:.3f} s; get_dataset + "
+        f"run_single_config(pq, M=16) on {data.name}: {total:.3f} s in all")
+    return data, metrics, x_dev
+
+
+def direct_recall(torch, dev, data, nq):
+    """recall@10 of a FlatQuantizedIndex(PQ M=16, B=8, seed 0) built on
+    ``data`` without the harness, searched at k=100 as the sweep's recall
+    search is."""
+    from vq_tpu_torch import Metric, PQConfig, SearchConfig
+    from vq_tpu_torch.index.flat import FlatQuantizedIndex
+    from vq_tpu_torch.methods.pq import PQ
+    from vq_tpu_torch.metrics import recall_at_k
+
+    index = FlatQuantizedIndex(PQ(PQConfig(num_subquantizers=16), seed=0, device=dev),
+                               SearchConfig(metric=Metric.L2, use_bf16=True)).fit(data.vectors)
+    ids, _ = index.search_with_scores(data.queries[:nq], k=100)
+    return recall_at_k(data.ground_truth[:nq], ids, 10)
+
+
+def check_gt_sample(torch, x, queries, saved, every=16):
+    """The saved ground truth (L2 top-k ids, best first) of every
+    ``every``-th query against a plain f32 ``torch.cdist`` over the rows
+    ``x`` (on the card): ids equal at every rank whose squared distance is
+    separated from its neighbours' by more than the f32 tolerance.  Returns
+    (queries checked, separated ranks)."""
+    qs = torch.from_numpy(np.ascontiguousarray(queries[::every])).to(x.device)
+    d2 = torch.cdist(qs, x) ** 2
+    s, ids = torch.topk(d2, saved.shape[1], dim=1, largest=False)
+    got = torch.from_numpy(saved[::every].astype(np.int64)).to(x.device)
+    x_sq_max = float(torch.linalg.vector_norm(x, dim=1).max()) ** 2
+    _, sep = where_separated(torch, qs, x_sq_max, (ids.cpu().numpy(), s.cpu().numpy()),
+                             (got.cpu().numpy(), d2.gather(1, got).cpu().numpy()),
+                             "precompute-gt against torch.cdist")
+    return qs.shape[0], sep
+
+
+WRAPPERS = ("pq_scan_topk_fused", "pq_score_all", "packed_scan_topk")
+
+
+@contextlib.contextmanager
+def recording(calls: list):
+    """Within the block, each call of a kernel wrapper (``WRAPPERS``) from
+    another module of the port is appended to ``calls`` as (wrapper name,
+    its arguments by name, defaults filled in), then runs as before (the
+    wrapper counts its own launches).  The callers bind the wrappers by
+    name at import, so each such binding is swapped for the block."""
+    import importlib
+    import inspect
+
+    from vq_tpu_torch.kernels import packed_scan as pk
+    from vq_tpu_torch.kernels import pq_scan as ps
+
+    for name in ("kernels.adc", "methods.saq", "methods.rabitq", "methods.rankaware"):
+        importlib.import_module(f"vq_tpu_torch.{name}")
+    wrappers = {id(getattr(mod, name)): getattr(mod, name)
+                for mod, name in ((ps, WRAPPERS[0]), (ps, WRAPPERS[1]), (pk, WRAPPERS[2]))}
+
+    def shim(f):
+        sig = inspect.signature(f)
+
+        def call(*a, **kw):
+            bound = sig.bind(*a, **kw)
+            bound.apply_defaults()
+            calls.append((f.__name__, dict(bound.arguments)))
+            return f(*a, **kw)
+        return call
+
+    swapped = []
+    for name, mod in list(sys.modules.items()):
+        if not name.startswith("vq_tpu_torch.") or mod in (pk, ps):
+            continue
+        for attr, val in list(vars(mod).items()):
+            if id(val) in wrappers and wrappers[id(val)] is val:
+                swapped.append((mod, attr, val))
+                setattr(mod, attr, shim(val))
+    try:
+        yield calls
+    finally:
+        for mod, attr, val in swapped:
+            setattr(mod, attr, val)
+
+
+def call_kernel(name, a) -> str:
+    """The kernel a recorded wrapper call launches (``KERNELS``)."""
+    if name == "packed_scan_topk" and a["tile_mask"] is not None:
+        return "packed_scan_topk_gather"
+    return name
+
+
+def call_shape(name, a) -> str:
+    """A recorded call's shapes and options; calls alike in these are
+    checked once."""
+    if name == "packed_scan_topk":
+        segs = " ".join(f"({s.bits},{s.ln},{s.dequant})" for s in a["segs"])
+        return (f"{call_kernel(name, a)} Q={a['q_cat'].shape[0]} D={a['q_cat'].shape[1]} "
+                f"N={a['factors'].shape[1]} k={a['k']} {a['metric_kind']} {a['family']} "
+                f"{'bf16' if a['use_bf16'] else 'f32'} prune={a['prune']} segments {segs}")
+    m, kk, dsub = a["codebooks"].shape
+    return (f"{name} Q={a['queries'].shape[0]} N={a['codes'].shape[0]} M={m} K={kk} "
+            f"dsub={dsub} k={a.get('k', 0)} l2={a['l2']} limit={a.get('limit')} "
+            f"{'bf16' if a['use_bf16'] else 'f32'}")
+
+
+def check_call(torch, name, a, what) -> float:
+    """One recorded wrapper call again, held against its plain version on
+    the same inputs as phases 3, 6 and 9 hold the kernels: in f32, scores
+    within the tolerance and ids equal where separated; in bf16 as called,
+    PQ scores within the tolerance of the plain bf16 version's, packed
+    recall@k ≥ BF16_MIN_RECALL against it.  Returns the largest f32 score
+    error."""
+    from vq_tpu_torch.kernels import packed_scan as pk
+    from vq_tpu_torch.kernels import pq_scan as ps
+
+    def floor(s):  # -inf (fewer than k rows in reach) compares as a number
+        return torch.clamp(s, min=-1e30)
+
+    if name == "pq_score_all":
+        q, codes, cb = a["queries"], a["codes"], a["codebooks"]
+        tol = f32_tol(torch, q.float(), cb)
+        return max(check_scores(torch, ps.pq_score_all(**{**a, "use_bf16": bf16}),
+                                ps.pq_score_all_plain(q, codes, cb, a["l2"], bf16), tol,
+                                f"{what} {'bf16' if bf16 else 'f32'}")
+                   for bf16 in {False, a["use_bf16"]})
+    if name == "pq_scan_topk_fused":
+        q, codes, cb, k = a["queries"], a["codes"], a["codebooks"], a["k"]
+        tol = f32_tol(torch, q.float(), cb)
+        ks, ki = ps.pq_scan_topk_fused(**{**a, "use_bf16": False})
+        rs, ri = ps.pq_scan_topk_fused_plain(q, codes, cb, k + 1, a["l2"], a["limit"], False)
+        err = check_topk_f32(torch, floor(ks), ki, floor(rs), ri, k, tol, f"{what} f32")[0]
+        if a["use_bf16"]:
+            bs = ps.pq_scan_topk_fused(**a)[0]
+            check_scores(torch, floor(bs), floor(ps.pq_scan_topk_fused_plain(**a)[0]), tol,
+                         f"{what} bf16")
+        return err
+    k, mask = a["k"], a["tile_mask"]
+    lim = min(a["factors"].shape[1], a["limit"] or a["factors"].shape[1])
+    af = {**a, "use_bf16": False}
+    ks, ki = pk.packed_scan_topk(**af)[:2]
+    rs, ri = pk.packed_scan_topk_plain(**{**af, "k": k + 1})[:2]
+    reach = torch.isfinite(ks)
+    require(bool(((ki < lim) | ~reach).all()), f"{what}: ids past the limit")
+    if mask is not None:
+        require(bool(((mask[ki.long() // 512] != 0) | ~reach).all()),
+                f"{what}: ids outside the masked-in tiles")
+    err = check_topk_f32(torch, floor(ks), ki, floor(rs), ri, k, packed_tol(torch, af),
+                         f"{what} f32")[0]
+    if a["use_bf16"]:
+        ki, pi = pk.packed_scan_topk(**a)[1].cpu(), pk.packed_scan_topk_plain(**a)[1].cpu()
+        kk = min(k, lim)
+        rec = recall(pi, ki, kk)
+        require(rec >= BF16_MIN_RECALL, f"{what} bf16: recall@{kk} {rec} against the plain "
+                                        f"bf16 version < {BF16_MIN_RECALL}")
+    return err
+
+
+def check_calls(torch, calls, got, results, what) -> str:
+    """The wrapper calls a step made (``recording``): one per launch its
+    counters saw (``got``), and each distinct ``call_shape`` held against
+    its plain version (``check_call``), outside the step's count.  The
+    largest f32 error joins the kernel's in ``results``.  Returns a line."""
+    made = dict.fromkeys(KERNELS, 0)
+    for name, a in calls:
+        made[call_kernel(name, a)] += 1
+    for kernel in KERNELS:
+        require_launches(got[kernel], made[kernel], f"{what}: {kernel} launches vs its "
+                                                    f"wrapper's recorded calls")
+    seen, errs = {}, {}
+    for name, a in calls:
+        shape = call_shape(name, a)
+        seen[shape] = seen.get(shape, 0) + 1
+        if seen[shape] == 1:
+            errs[shape] = check_call(torch, name, a, f"{what} {shape}")
+            r = results.setdefault(call_kernel(name, a),
+                                   {"max_abs_err": 0.0, "times": {}, "bounds": {}})
+            r["max_abs_err"] = max(r["max_abs_err"], errs[shape])
+    torch.cuda.synchronize()
+    return "; ".join(f"{shape} called {seen[shape]}×, f32 max_abs_err {err:.3e}"
+                     for shape, err in errs.items())
+
+
+def phase_harness(torch, dev, results=None, n=1_000_000, d=1536, nq=1024, n_gate=100_000,
+                  n_stream=262_144, n_sub=20_000, clusters=4096, nprobe=50,
+                  plot=PLOT_ON_CARD, profile=True):
+    """The harness and CLI (``vq_tpu_torch.cli.main``) in this process on
+    ``dev``, step by step (``harness_steps``), each step's rows read back,
+    its kernels required and every kernel call it made held against its
+    plain version at the step's shapes (``check_calls``, its f32 errors
+    joining ``results``); the sweep's PQ M=16 configuration run once more
+    outside the CLI (``harness_profile``) and a FlatQuantizedIndex built
+    on the same dataset without the harness (``direct_recall``), whose
+    recall the logged ones must equal bit for bit; then ``python -m
+    vq_tpu_torch`` in a subprocess.  Returns the launches of the CLI
+    steps, by kernel."""
+    import shutil
+    import tempfile
+
+    from vq_tpu_torch.cli import main as cli
+    from vq_tpu_torch.data.datasets import planted_arrays
+    from vq_tpu_torch.data.io import write_fvecs
+    from vq_tpu_torch.utils.run_logger import load_runs
+
+    results = {} if results is None else results
+    tmp, t0 = tempfile.mkdtemp(prefix="vq_harness_"), time.perf_counter()
+    try:
+        data, mets_profiled, x_dev = harness_profile(torch, dev, n, d, nq, profile)
+        want_recall = direct_recall(torch, dev, data, nq)
+        require(mets_profiled["recall@10"] == want_recall,
+                f"phase 14: run_single_config's recall@10 {mets_profiled['recall@10']!r} != "
+                f"the direct index's {want_recall!r}")
+        log(f"[phase 14] direct FlatQuantizedIndex(PQ M=16) on {data.name}: recall@10 "
+            f"{want_recall!r} = run_single_config's")
+        xg, qg = planted_arrays(n_gate, d, PLANTED_QUERIES, device=dev)
+        write_fvecs(os.path.join(tmp, "base.fvecs"), xg.cpu().numpy())
+        write_fvecs(os.path.join(tmp, "query.fvecs"), qg.cpu().numpy())
+        del xg, qg
+        db = os.path.join(tmp, "runs.db")
+        path, seen = {}, 0
+        for name, argv, kernels in harness_steps(tmp, str(dev), n, d, nq, n_gate, n_stream,
+                                                 clusters, nprobe, plot):
+            calls = []
+            with counting(path) as got, recording(calls):
+                _, s = wall_s(torch, lambda: cli(argv))
+            runs = load_runs(db_path=db) if os.path.exists(db) else []
+            new, seen = runs[seen:], len(runs)
+            if kernels:
+                require_launched({k: got[k] for k in kernels}, f"phase 14 {name}: kernels")
+            mets = [r["metrics"] for r in new]
+            if name == "precompute-gt":
+                saved = np.load(os.path.join(tmp, "gt.npy"))
+                require(np.array_equal(saved, data.ground_truth),
+                        "precompute-gt differs from the Dataset's ground truth")
+                nq_gt, sep = check_gt_sample(torch, x_dev, data.queries, saved)
+                del x_dev
+                shown = (f"({saved.shape[0]}, {saved.shape[1]}) ids = the Dataset's; = "
+                         f"torch.cdist's at {sep} separated ranks of {nq_gt} sampled queries")
+            elif name.startswith("run") or name.startswith("sweep"):
+                require(len(new) == (2 if name.startswith("sweep") else 1)
+                        and all(r["dataset"].startswith("planted-") for r in new),
+                        f"phase 14 {name}: rows {[(r['method'], r['dataset']) for r in new]}")
+                require(all(np.isfinite(m["recall@10"]) and m["qps"] > 0 for m in mets),
+                        f"phase 14 {name}: metrics")
+                if "M=16" in name:  # the harness adds nothing to the direct build's result
+                    require(mets[0]["recall@10"] == want_recall,
+                            f"phase 14 {name}: logged recall@10 {mets[0]['recall@10']!r} != "
+                            f"the direct index's {want_recall!r}")
+                if name == f"run PQ M={d // 8}":
+                    require(mets[0]["recall@10"] >= RECALL_GATE_PQ192_FLOOR,
+                            f"recall gate {mets[0]['recall@10']} < {RECALL_GATE_PQ192_FLOOR}")
+                shown = "; ".join(
+                    f"{r['method']} {r['config']}: QPS {m['qps']:.1f}, recall@10 "
+                    f"{m['recall@10']:.4f}" + (f", recall@100 {m['recall@100']:.4f}"
+                                               if "recall@100" in m else "")
+                    + f", MSE {m['mse']:.4e}, compression {m['compression_ratio']:.1f}x, "
+                    f"fit {m['fit_time_s']:.3f} s, compress {m['compress_time_s']:.3f} s"
+                    for r, m in zip(new, mets))
+            elif name == "ivf-bench":
+                rows = read_csv(os.path.join(tmp, "ivf"))
+                require(len(rows) == 2 and all(r["error"] == "" for r in rows),
+                        f"ivf-bench rows: {[(r['method'], r['error']) for r in rows]}")
+                shown = "; ".join(
+                    f"{r['method']} bpd {r['bpd']}: QPS {float(r['qps']):.1f}, recall@100 "
+                    f"{float(r['recall@100']):.4f}, build {float(r['build_time_s']):.3f} s, "
+                    f"{int(r['memory_bytes']) / 1e6:.1f} MB" for r in rows)
+            elif name == "streaming-sweep":
+                (m,) = mets
+                require(new[0]["dataset"] == f"dummy-{n_stream}x{d}-streaming"
+                        and m["streamed_vectors"] == n_stream and 0 < m["mse"] < np.inf,
+                        f"streaming row: {new[0]['dataset']} {m}")
+                shown = (f"pq {new[0]['config'] or 'defaults'}: {m['streamed_vectors']} rows, "
+                         f"encode {m['encode_vecs_per_s']:.0f} rows/s, MSE {m['mse']:.4e}, "
+                         f"compression {m['compression_ratio']:.1f}x, fit {m['fit_time_s']:.3f} s")
+            elif name == "study":
+                rows = read_csv(os.path.join(tmp, "study"))
+                require(len(rows) == 6 and all(0 <= float(r["recall@10"]) <= 1 for r in rows),
+                        f"study rows: {rows}")
+                shown = "; ".join(f"{r['method']} bpd {r['bpd']}: recall@10 "
+                                  f"{float(r['recall@10']):.4f}, MSE {float(r['mse']):.3e}, "
+                                  f"{float(r['code_bytes']):.0f} code bytes" for r in rows)
+            else:  # plot
+                shown = f"{len(os.listdir(os.path.join(tmp, 'plots')))} files"
+                require(shown == "7 files", f"plot wrote {shown}")
+            log(f"[harness] {name}: {s:.3f} s; {shown}; launches {got}")
+            if calls:
+                t1 = time.perf_counter()
+                line = check_calls(torch, calls, got, results, f"phase 14 {name}")
+                log(f"[harness] {name}: kernels vs plain at the step's shapes "
+                    f"({time.perf_counter() - t1:.3f} s, outside the step's count): {line}")
+            del calls
+        if not plot:
+            log("[harness] plot: not run (matplotlib is not installed on this machine)")
+        out, s = wall_s(torch, lambda: subprocess.run(
+            [sys.executable, "-m", "vq_tpu_torch", "run", "--dataset", f"dummy-{n_sub}x128",
+             "--method", "sq", "--num-queries", "100", "--db-path", os.path.join(tmp, "sub.db"),
+             "--device", str(dev)], cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=300))
+        require(out.returncode == 0, f"python -m vq_tpu_torch: {out.stderr[-2000:]}")
+        m = json.loads(out.stdout)
+        log(f"[harness] python -m vq_tpu_torch run sq on dummy-{n_sub}x128 (subprocess): "
+            f"{s:.3f} s; QPS {m['qps']:.1f}, recall@10 {m['recall@10']:.4f}, MSE "
+            f"{m['mse']:.4e}, compression {m['compression_ratio']:.1f}x")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[phase 14] launches of the CLI steps: {path}; the phase took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return path
+
+
 def main() -> int:
     import torch
 
@@ -2133,9 +2601,10 @@ def main() -> int:
     phase_decode_edges(torch, dev)
     phase_kernels(torch, dev, results)
     phase_packed_kernels(torch, dev, results)
-    # each path's launches, its counters read just after it: phases 4-12
+    # each path's launches, its counters read just after it: phases 4-14
     # each require their kernels to launch, the kernels line counts phase
-    # 13's (sharded serving) and lists every path's beside it
+    # 14's (the harness's CLI steps, the newest path) and lists every
+    # path's beside it
     paths = {}
     paths["phase 4 PQ flat"], pq_ctx = phase_main(torch, dev)
     phase_gate(torch, dev)
@@ -2150,6 +2619,8 @@ def main() -> int:
         "packed_scan_topk_gather": phase_ivf_residual(torch, dev, ivf_ctx)}
     paths["phase 13 sharded serving"] = phase_sharded(torch, dev, pq_ctx, saq_ctx, ivf_ctx)
     del pq_ctx, saq_ctx, ivf_ctx
+    torch.cuda.empty_cache()
+    paths["phase 14 harness CLI"] = phase_harness(torch, dev, results)
     log(f"[launches] by path: {json.dumps(paths)}")
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "vq_tpu"))
     require(not leaked, f"JAX or JAX-package modules were imported: {leaked[:5]}")
@@ -2167,7 +2638,7 @@ def main() -> int:
         bms, bby = results[name]["bounds"][tag]
         kernels.append({"name": name, "route": "cuda", "source": f"vq_tpu_torch/csrc/{src}",
                         "replaces": replaces,
-                        "launches": paths["phase 13 sharded serving"][name],
+                        "launches": paths["phase 14 harness CLI"][name],
                         "launches_by_path": {p: n[name] for p, n in paths.items() if name in n},
                         "max_abs_err": results[name]["max_abs_err"], "ms": tk,
                         "plain_ms": tp, "bound_ms": bms, "bound_by": bby, "library_ms": None})

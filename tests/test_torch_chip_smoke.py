@@ -144,6 +144,32 @@ def test_phase_quantizers_rehearsal(cpu_smoke):
     assert launches == {"pq_scan_topk_fused": 0, "packed_scan_topk": 0}
 
 
+def test_phase_harness_rehearsal(cpu_smoke):
+    """Phase 14 at N=3000, D=48, Q=16 (the gate's planted corpus N=2000, the
+    stream N=4096, the subprocess's dummy N=2000, K=16 at nprobe 4), with
+    the plot step the card's machine cannot run."""
+    pytest.importorskip("pandas")
+    pytest.importorskip("matplotlib")
+    path = cs.phase_harness(torch, cpu_smoke, n=3000, d=48, nq=16, n_gate=2000, n_stream=4096,
+                            n_sub=2000, clusters=16, nprobe=4, plot=True, profile=False)
+    assert path == dict.fromkeys(cs.KERNELS, 0)
+
+
+def test_harness_steps_on_the_card_launch_every_kernel_at_full_width():
+    steps = cs.harness_steps("/t", "cuda:0", 1_000_000, 1536, 1024, 100_000, 262_144, 4096, 50,
+                             cs.PLOT_ON_CARD)
+    names = [name for name, _, _ in steps]
+    assert names == ["precompute-gt", "run PQ M=16 k=256", "sweep PQ M=16 + SAQ bpd=2",
+                     "ivf-bench", "streaming-sweep", "run PQ M=192", "study"]
+    assert {k for _, _, ks in steps for k in ks} == set(cs.KERNELS)
+    for _, argv, _ in steps:
+        assert argv[argv.index("--device") + 1] == "cuda:0"
+        if "--dataset" in argv:
+            assert argv[argv.index("--dataset") + 1] in (
+                "planted-1000000x1536", "planted-100000x1536", "dummy-262144x1536")
+    assert "M=192" in steps[5][1] and steps[3][1][steps[3][1].index("--nprobe") + 1] == "50"
+
+
 def test_same_where_separated_holds_ids_only_where_scores_part():
     class Index:  # decompress: unit rows
         def decompress(self, ids):

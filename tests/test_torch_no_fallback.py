@@ -2,10 +2,13 @@
 
 * ``vq_tpu_torch`` never imports jax nor any module of the JAX package
   ``vq_tpu`` (checked in a fresh interpreter after driving the Flat,
-  residual-IVF and IVF-packed searches with every quantizer, and the
-  sharded indexes on a mesh of CPU shards).
+  residual-IVF and IVF-packed searches with every quantizer, the sharded
+  indexes on a mesh of CPU shards, and the harness's CLI: sweep, ivf-bench
+  and study).
 * The card is the default: asking for ``cuda``, or for no device with host
-  data, without a card raises; nothing falls back to the CPU.
+  data, without a card raises; nothing falls back to the CPU (the exact
+  scan and ground truth of numpy data included).
+* The IVF benchmark keeps a failing runner's error in its row and CSV.
 * A quantizer built without a device takes a tensor corpus's device; a
   tensor on another device than the CPU is never copied to it (``meta``
   stands in for a card here).
@@ -21,6 +24,7 @@
   sharded packed indexes, never served by the generic scan instead.
 """
 
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -96,6 +100,23 @@ for index in (ShardedFlatPQIndex(PQ(PQConfig(4, 4, KMeansConfig(iters=2)), **cpu
     ids = index.fit(x).search(x[:5], 3)
     assert ids.shape == (5, 3), ids.shape
 assert dp_lloyd_step(mesh, x, x[:8]).shape == (8, 16)
+import contextlib, io, os, tempfile
+from vq_tpu_torch.cli import main
+from vq_tpu_torch.data.io import write_fvecs
+from vq_tpu_torch.utils import export, profiling
+from vq_tpu_torch.viz import plot
+tmp = tempfile.mkdtemp()
+write_fvecs(os.path.join(tmp, "b.fvecs"), x)
+for argv in (["sweep", "--dataset", "dummy-600x16", "--methods", "pq", "saq", "--pq-subquantizers",
+              "4", "--pq-bits", "4", "--bpd", "2", "--num-queries", "5"],
+             ["ivf-bench", "--dataset", "dummy-600x16", "--methods", "saq_ivf_packed", "--bpd", "2",
+              "--num-clusters", "4", "--nprobe", "2", "--output", os.path.join(tmp, "i.csv")],
+             ["study", "--base", os.path.join(tmp, "b.fvecs"), "--queries",
+              os.path.join(tmp, "b.fvecs"), "--methods", "ours", "--bpd", "2",
+              "--output-dir", tmp]):
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert main(argv + ["--device", "cpu", "--db-path", os.path.join(tmp, "r.db")]
+                    if argv[0] == "sweep" else argv + ["--device", "cpu"]) == 0
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "vq_tpu"))
 assert not loaded, loaded
@@ -309,3 +330,54 @@ def test_sharded_indexes_on_cpu_shards_launch_no_kernel():
                               mesh=mesh).fit(x).search(x[:4], 5)
     assert ps.pq_scan_topk_fused.launches == ps.pq_score_all.launches == 0
     assert pk.packed_scan_topk.launches == pk.packed_scan_topk.gather_launches == 0
+
+
+def test_exact_scan_of_host_data_goes_to_the_card(monkeypatch):
+    """numpy corpora (ground truth, ``precompute-gt``) go to the card: without
+    one the exact scan raises rather than run on the CPU; a CPU tensor, or
+    ``device="cpu"``, asks for the CPU."""
+    from vq_tpu_torch.data import datasets
+    from vq_tpu_torch.kernels.adc import exact_topk
+
+    x = np.random.default_rng(4).standard_normal((300, 8)).astype(np.float32)
+    want = exact_topk(torch.from_numpy(x[:3]), torch.from_numpy(x), 5)[1]
+    assert torch.equal(want[:, 0], torch.arange(3, dtype=want.dtype))
+    np.testing.assert_array_equal(
+        datasets.compute_ground_truth(x, x[:3], k=5, device="cpu"), want.numpy())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: exact_topk(x[:3], x, 5),
+                 lambda: exact_topk(torch.from_numpy(x[:3]), x, 5),
+                 lambda: datasets.compute_ground_truth(x, x[:3], k=5),
+                 lambda: datasets.Dataset("d", x, x[:3]),
+                 lambda: datasets.get_dataset("dummy-300x8"),
+                 lambda: datasets.load_planted_dataset(300, 8, 3)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+
+
+def test_ivf_benchmark_writes_a_failing_runners_error(tmp_path, monkeypatch):
+    """A runner that raises leaves its error in its row and in the CSV (the
+    reference's per-method isolation); the other rows still run."""
+    import csv
+
+    from vq_tpu_torch.bench import ivf_bench
+    from vq_tpu_torch.data.datasets import load_dummy_dataset
+
+    real = ivf_bench._build_index
+
+    def build(method, *args):
+        if method == "sq_flat":
+            raise RuntimeError("kernel launch failed")
+        return real(method, *args)
+
+    monkeypatch.setattr(ivf_bench, "_build_index", build)
+    data = load_dummy_dataset(num_vectors=500, dim=8, num_queries=5, device="cpu")
+    rows = ivf_bench.ivf_benchmark(data=data, methods=["sq_flat", "pq_flat"], k=5, bpd=[2.0],
+                                   num_clusters=4, nprobe=2, output=str(tmp_path / "i.csv"),
+                                   device="cpu")
+    assert [r["error"] for r in rows] == ["RuntimeError: kernel launch failed", ""]
+    (name,) = os.listdir(tmp_path)
+    with open(tmp_path / name, newline="") as f:
+        written = list(csv.DictReader(f))
+    assert [r["error"] for r in written] == [r["error"] for r in rows]
+    assert written[0]["recall@5"] == "" and float(written[1]["recall@5"]) > 0

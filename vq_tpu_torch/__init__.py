@@ -22,11 +22,15 @@ counterpart's path and public functions so the two are easy to compare:
     index/ivf_packed.py ← vq_tpu/index/ivf_packed.py  probed-tile IVF index
     dist/               ← vq_tpu/dist                 sharded serving over a
                           single-process mesh of (possibly repeated) devices
+    metrics/, data/{io,datasets,hf_loaders}.py, utils/, viz/, bench/,
+    cli.py, __main__.py ← the same paths             the harness and
+                          ``python -m vq_tpu_torch`` (``--device``)
     convert.py          JAX-package state (as numpy) → port state
 
 The port imports torch and never jax, nor anything of the JAX package: what
 it needs of a framework-neutral module there (the configs, the native
-allocators) it keeps as its own copy.  Entry points run on the card
+allocators, the numpy metrics and IO) it keeps as its own copy.  Entry
+points run on the card
 (``cuda``) unless the caller asks for the CPU (``device="cpu"`` or CPU
 tensors).
 """

@@ -83,6 +83,16 @@ def to_device(x: torch.Tensor, device) -> torch.Tensor:
     return x.to(device)
 
 
+def to_host(x) -> np.ndarray:
+    """A tensor on any device, or an array-like → numpy on the host.  The
+    harness's metrics copy card results off through this on purpose (the
+    JAX package's ``np.asarray`` of a device array); compute code never
+    does (``to_device``)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
 def as_f32(x, device) -> torch.Tensor:
     """numpy or tensor → f32 tensor on ``device`` (no copy when it already
     is; see ``to_device`` for a tensor on another device)."""

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from vq_tpu_torch.core.config import Metric
-from vq_tpu_torch._device import as_f32, bf16_supported, round_bf16
+from vq_tpu_torch._device import as_f32, bf16_supported, device_of, round_bf16, to_device
 from vq_tpu_torch.kernels.pq_scan import (  # noqa: F401  (decode_pq: public here too)
     MAX_K,
     decode_pq,
@@ -235,11 +235,12 @@ def exact_topk(
     num_valid: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact brute-force top-k over raw (or reconstructed) vectors, in f32
-    (TF32 is off, see ``_device``).  Runs where ``x`` lives (numpy input: on
-    the CPU).  Used for ground truth."""
+    (TF32 is off, see ``_device``).  Runs where a tensor ``x`` lives; numpy
+    ``x`` goes to the card (``_device.device_of``), so without one it
+    raises.  Used for ground truth."""
+    dev = device_of(x)
     if isinstance(x, np.ndarray):
-        x = torch.from_numpy(np.ascontiguousarray(x))
-    dev = x.device
+        x = to_device(torch.from_numpy(np.ascontiguousarray(x)), dev)
     n = x.shape[0]
     num_q = queries.shape[0]
     tile = min(tile_rows, max(1, n))
