@@ -126,6 +126,28 @@ Phases (any failure exits non-zero; nothing is caught):
    FlatQuantizedIndex the phase builds on the same dataset from the same
    seed without the harness.
 
+15. The search options, run after phase 13 (before 14), while phases 4, 7
+   and 10's indexes are alive: the packed kernel on SAQ segment subsets
+   (the head 1 and 2 segments, and the last alone, whose scale and L2
+   shift columns are not the first ones) against its plain version on
+   phase 6's corpus, k = 50 and 100, L2 / IP / NIP, a norm-ordered and an
+   order-preserving cache, timed beside its bound; the head-segment
+   cascade on phase 7's index (prune_segments 1 and 2 × rerank_factor 5
+   and 10: recall@10 and ms beside the dense search; each one's stage-1
+   kernel call, a segment subset at N=1,048,576 and k1 = 50 or 100,
+   against its plain version as phase 14 holds its calls; rerank_factor·k >
+   128 = the dense search bit for bit; the rerank = a plain f32 rescore
+   of its candidates by the full decode; ``[profile] SAQ cascade``);
+   probe-coherent query groups on phase 10's index (G = 1, 4, 16 at Q =
+   256 and 64, on phase 10's queries and on a coherent stream, queries
+   near one row of each of 8 cells: Σ tiles, ms per search, recall against
+   the exact top-100 and the full probe, the last ≥ the per-query probe
+   ceiling; G=1 = the ungrouped search bit for bit; each G > 1 = its
+   per-group plain witness, by recall in bf16 at Q=256 and where
+   separated in f32 at Q=64);
+   ``approx=True`` = ``approx=False`` bit for bit on the PQ M=16 flat index
+   at k=256, a sharded PQ index, SQ 8 bits and the IVF-packed index.
+
 Phases 6 and 9 hold a fifth configuration, RankAware bpd=2 (one segment
 per bit width, "perdim" and "values", no per-row scale: scale_col −1), and
 phase 6 its FFD packing once.
@@ -133,8 +155,8 @@ phase 6 its FFD packing once.
 The line before the last is a JSON object of the kernels: launches of
 phase 14's CLI steps (which run all four kernels), with each path's
 own count beside them (``launches_by_path``: each path's counters read
-just after it); errors from phases 3, 6, 9 and 14, times from 3, 6 and
-9; each kernel's bound, the least time the card could take for the timed
+just after it, phase 15's among them); errors from phases 3, 6, 9, 14
+and 15, times from 3, 6 and 9; each kernel's bound, the least time the card could take for the timed
 call.  A
 ``[launches] by path`` line before it holds the same counts by path;
 the card's name and power limit are printed before it, and the last line
@@ -261,16 +283,30 @@ def scanned_rows(torch, n_pad, limit, tile_mask=None):
     return int(valid.sum())
 
 
+def factor_rows_read(a) -> int:
+    """The factor rows a packed call reads: its segments' scale columns, the
+    L2 shift columns (L2) or the norm column (NIP)."""
+    cols = {s.scale_col for s in a["segs"] if s.scale_col >= 0}
+    if a["metric_kind"] == "l2":
+        cols |= set(a["r2_cols"])
+    elif a["metric_kind"] == "nip":
+        cols.add(a["norm_col"])
+    return len(cols)
+
+
 def packed_bound(torch, a):
     """The packed kernel's bound for ``packed_scan_topk`` arguments ``a``:
-    the scanned rows' words and factors, the level tables, the queries (and
-    the mask) read once, the (Q, k) top-k written once; 2·Q·D operations a
-    scanned row, in the operands' type (bf16 in bf16 mode)."""
+    the scanned rows' words and the factor rows the call reads
+    (``factor_rows_read``: a segment subset reads its own), the level
+    tables, the queries (and the mask) read once, the (Q, k) top-k written
+    once; 2·Q·D operations a scanned row, in the operands' type (bf16 in
+    bf16 mode)."""
     fac = a["factors"]
     n_pad = fac.shape[1]
     mask = a.get("tile_mask")
     rows = scanned_rows(torch, n_pad, a["limit"], mask)
-    per_row = (sum(w.numel() * w.element_size() for w in a["words"]) + fac.numel() * 4) / n_pad
+    per_row = (sum(w.numel() * w.element_size() for w in a["words"]) / n_pad
+               + factor_rows_read(a) * 4)
     nq, d = a["q_cat"].shape
     nbytes = (rows * per_row + sum(t.numel() * 4 for t in a["lv_tables"]) + nq * (d + 1) * 4
               + nq * a["k"] * 8 + (0 if mask is None else mask.numel() * mask.element_size()))
@@ -549,26 +585,38 @@ def phase_kernels(torch, dev, results, n=100_000, d=1536, nq=1024):
 
 
 # ---------------------------------------------------------------- phase 4
+def profile_fn(torch, fn, reps: int = 5):
+    """torch.profiler over `reps` calls of fn after one warm-up → (wall ms a
+    call, device-busy ms a call, device kernels launched a call, {device
+    activity: ms a call}, {CUDA runtime call: calls a call})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / reps * 1e3
+    per_kernel, kernels, runtime = {}, 0, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            per_kernel[e.name] = per_kernel.get(e.name, 0.0) + e.device_time / reps / 1e3
+            kernels += not e.name.startswith(("Memcpy", "Memset"))
+        elif e.name.startswith("cuda"):
+            runtime[e.name] = runtime.get(e.name, 0.0) + 1.0 / reps
+    busy = sum(per_kernel.values())
+    require(busy > 0, "torch.profiler recorded no device time")
+    return wall_ms, busy, kernels / reps, per_kernel, runtime
+
+
 def profile_search(torch, index, q, ks=(10, 100, 256), tag="", reps: int = 5) -> None:
     """torch.profiler over `reps` searches at each k: wall and device-busy ms
     per search, idle share, device ms per kernel."""
-    from torch.profiler import ProfilerActivity, profile
-
     for k in ks:
-        index.search_with_scores(q, k)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                index.search_with_scores(q, k)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) / reps * 1e3
-        per_kernel = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                per_kernel[e.name] = per_kernel.get(e.name, 0.0) + e.device_time / reps / 1e3
-        busy = sum(per_kernel.values())
-        require(busy > 0, "torch.profiler recorded no device time")
+        wall_ms, busy, _, per_kernel, _ = profile_fn(
+            torch, lambda: index.search_with_scores(q, k), reps)
         log(f"[profile]{tag} search k={k}: wall {wall_ms:.3f} ms/search, device busy "
             f"{busy:.3f} ms, idle share {1 - busy / wall_ms:.3f} (torch.profiler, {reps} "
             f"searches)")
@@ -2108,6 +2156,392 @@ def phase_sharded(torch, dev, ctx4, ctx7, ctx10, shards=4, nprobe=50, profile=Tr
     return path
 
 
+# ---------------------------------------------------------------- phase 15
+def subset_kernel(torch, dev, results, n, d, nq, heads, k1s):
+    """The packed kernel on a segment subset against its plain version:
+    SAQ uniform bpd=2 on phase 6's corpus, the head subsets ``heads`` and a
+    tail subset (whose segments' scale and L2 shift columns are not the
+    first ones), k1s, L2 / IP / NIP, a norm-ordered and an
+    order-preserving cache: f32 ids where separated, bf16 recall against
+    the plain bf16 version; then kernel and plain times beside the bound."""
+    from vq_tpu_torch import Metric, SAQConfig
+    from vq_tpu_torch.kernels import packed_scan as pk
+    from vq_tpu_torch.methods import saq as sq
+
+    t0 = time.perf_counter()
+    x, q, _ = packed_corpus(torch, n, d, nq, seed=11, dev=dev, lognormal=True)
+    norms = torch.linalg.norm(x, dim=1)
+    m = sq.SAQ(SAQConfig(bits_per_dim=2.0)).fit(x)
+    codes = m.compress(x)
+    del x
+    s_cnt = m.plan.num_segments
+    subsets = [tuple(range(p)) for p in heads] + [(s_cnt - 1,)]
+    r = results.setdefault("packed_scan_topk", {"max_abs_err": 0.0, "times": {}, "bounds": {}})
+    worst, n_sep, worst_rec, combos = 0.0, 0, 1.0, 0
+    for sort_rows in (True, False):
+        cache = sq.prepare_packed(m.plan, m.params, codes, norms=norms, sort_rows=sort_rows)
+        for seg_ids in subsets:
+            for k1 in k1s:
+                for metric in (Metric.L2, Metric.IP, Metric.NIP):
+                    what = (f"subset {seg_ids} k={k1} {metric.name} "
+                            f"{'norm-ordered' if sort_rows else 'order-preserving'}")
+                    a = sq.packed_scan_args(m.plan, m.params, q, cache, k1, metric,
+                                            seg_ids=seg_ids, use_bf16=False)
+                    require([s.scale_col for s in a["segs"]] == list(seg_ids) and
+                            (metric != Metric.L2 or
+                             a["r2_cols"] == tuple(s_cnt + s for s in seg_ids)),
+                            f"{what}: the subset's factor columns")
+                    ks, ki = pk.packed_scan_topk(**a)
+                    rs, ri = pk.packed_scan_topk_plain(**{**a, "k": k1 + 1})
+                    err, sep, _ = check_topk_f32(torch, ks, ki, rs, ri, k1, packed_tol(torch, a),
+                                                 f"packed f32 {what}")
+                    worst, n_sep, combos = max(worst, err), n_sep + sep, combos + 1
+                    ab = {**a, "use_bf16": True}
+                    rec = recall(pk.packed_scan_topk_plain(**ab)[1].cpu(),
+                                 pk.packed_scan_topk(**ab)[1].cpu(), k1)
+                    worst_rec = min(worst_rec, rec)
+                    require(rec >= BF16_MIN_RECALL, f"packed bf16 {what}: recall {rec}")
+    r["max_abs_err"] = max(r["max_abs_err"], worst)
+    log(f"[phase 15] packed kernel on segment subsets {subsets} of SAQ bits {m.plan.seg_bits} "
+        f"lens {m.plan.seg_lens} (N={n}, D={d}, Q={nq}), {combos} (cache, subset, k, metric) "
+        f"calls: f32 max_abs_err={worst:.3e}, ids = plain at {n_sep} separated queries; lowest "
+        f"bf16 recall@k vs plain bf16 {worst_rec:.4f}")
+    seg_ids, k1 = subsets[0], k1s[-1]  # the cascade's stage 1 at rerank_factor 10
+    (tk, tp, bnd), line = time_packed(
+        torch, sq.packed_scan_args(m.plan, m.params, q, cache, k1, Metric.L2, seg_ids=seg_ids),
+        f"L2 k={k1}")
+    tag = f"SAQ uniform segments {seg_ids} k={k1}"
+    r["times"][tag], r["bounds"][tag] = (tk, tp), bnd
+    full = sq.packed_scan_args(m.plan, m.params, q, cache, k1, Metric.L2)
+    log(f"[phase 15] {tag} times (CUDA events, median of 5): {line}; every segment "
+        f"{cuda_ms(torch, lambda: pk.packed_scan_topk(**full)):.3f} ms, bound "
+        f"{packed_bound(torch, full)[0]:.4f} ms")
+    log(f"[phase 15] segment-subset checks ok ({time.perf_counter() - t0:.3f} s)")
+    del codes, cache, norms, q
+    torch.cuda.empty_cache()
+
+
+def check_result(torch, ids, scores, nq, k, n, what):
+    require(ids.shape == (nq, k) and scores.shape == (nq, k), f"{what}: result shape")
+    require(bool(torch.isfinite(scores).all()) and int(ids.max()) < n and int(ids.min()) >= 0,
+            f"{what}: result values")
+    require(bool((torch.diff(scores, dim=1) >= 0).all()), f"{what}: not ascending")
+
+
+def cascade(torch, dev, results, ctx, heads, rfs, path, profile, k=10):
+    """The head-segment cascade on phase 7's SAQ index (N=1,048,576,
+    D=1024, Q=256, k=10, bf16): recall@10 and ms beside the dense search;
+    each (prune_segments, rerank_factor)'s stage-1 kernel call held against
+    its plain version (``check_calls``); rerank_factor·k > 128 = the dense
+    search bit for bit; the rerank = a plain f32 rescore of its
+    candidates; a profile."""
+    from vq_tpu_torch import Metric
+    from vq_tpu_torch.kernels import packed_scan as pk
+    from vq_tpu_torch.kernels.topk import ordered_topk
+    from vq_tpu_torch.methods import saq as sq
+
+    saq, index, gt = ctx["saq"], ctx["index"], ctx["gt"]
+    x, q = ctx["corpus"]()
+    del x
+    codes, norms, cache, nq = index.codes, index.norms, index._scan_cache, q.shape[0]
+    plan, params = saq.plan, saq.params
+
+    def search(p=0, rf=10):
+        return saq.scan_topk(q, codes, k, Metric.L2, norms=norms, use_bf16=True,
+                             prune_segments=p, rerank_factor=rf, cache=cache)
+
+    dense = search()
+    ms_dense = cuda_ms(torch, search)
+    rec_dense = recall(gt, dense[1].cpu(), k)
+    log(f"[phase 15] SAQ dense search (plan bits {plan.seg_bits}, lens {plan.seg_lens}) Q={nq} "
+        f"k={k}: {ms_dense:.3f} ms (CUDA events, median of 5), recall@{k} {rec_dense:.4f}")
+    for p in heads:
+        for rf in rfs:
+            calls = []
+            with counting(path) as got, recording(calls):
+                s, i = search(p, rf)
+                ms = cuda_ms(torch, lambda: search(p, rf))
+            require_launches(got["packed_scan_topk"], 8, f"cascade p={p} rf={rf}: stage 1, "
+                                                         f"8 searches")
+            check_result(torch, i, s, nq, k, cache.num_rows, f"cascade p={p} rf={rf}")
+            # stage 1 as the search called it (segment subset, k1, bf16, N=1M)
+            # against its plain version: f32 ids where separated, bf16 recall
+            held = check_calls(torch, calls, got, results, f"phase 15 cascade p={p} rf={rf}")
+            log(f"[phase 15] cascade prune_segments={p} rerank_factor={rf} (k1={rf * k}): "
+                f"{ms:.3f} ms/search (CUDA events, median of 5) against dense {ms_dense:.3f}, "
+                f"ratio {ms / ms_dense:.3f}; recall@{k} {recall(gt, i.cpu(), k):.4f} against "
+                f"dense {rec_dense:.4f}; stage 1 = its plain version: {held}")
+            del calls
+    p, rf = heads[0], 128 // k + 1
+    wide = search(p, rf)
+    require(torch.equal(wide[0], dense[0]) and torch.equal(wide[1], dense[1]),
+            f"rerank_factor·k = {rf * k} > 128 must be the dense search bit for bit")
+    # the rerank against a plain f32 rescore of the same candidates:
+    # rows rebuilt by the full decode, scored by the direct difference
+    rf = rfs[-1]
+    head = tuple(range(p))
+    s1, cand = sq._packed_scan(plan, params, q, cache, rf * k, Metric.L2, seg_ids=head)
+    cand = cache.perm[cand.long()]
+    alive = torch.isfinite(s1)
+    q_sq = torch.sum(q * q, dim=1)
+    rr = sq._saq_rerank(plan, params, q, codes, cand, alive, k, Metric.L2, norms=norms,
+                        q_sq=q_sq)
+    xh = saq.decompress(codes[cand.reshape(-1).long()]).reshape(nq, rf * k, -1)
+    d2 = torch.sum((q[:, None, :] - xh) ** 2, dim=-1)
+    d2 = torch.where(alive, d2, torch.full_like(d2, np.inf))
+    ns, pos = ordered_topk(-d2, k)
+    ref = (torch.gather(cand, 1, pos.long()).cpu().numpy(), (-ns).cpu().numpy())
+    err, n_sep = where_separated(torch, q, float(torch.max(torch.sum(xh * xh, dim=-1))),
+                                 ref, (rr[1].cpu().numpy(), rr[0].cpu().numpy()),
+                                 f"cascade p={p} rf={rf} rerank vs a plain f32 rescore")
+    log(f"[phase 15] rerank_factor·k = {128 // k + 1}·{k} > 128: = the dense search bit for "
+        f"bit; the rerank (p={p}, k1={rf * k}) = a plain f32 rescore of its candidates by the "
+        f"full decode where separated (max |Δscore| {err:.3e}, ids equal at {n_sep} separated "
+        f"ranks)")
+    if profile:
+        a = sq.packed_scan_args(plan, params, q, cache, rf * k, Metric.L2, seg_ids=head)
+        t1 = cuda_ms(torch, lambda: pk.packed_scan_topk(**a))
+        t2 = cuda_ms(torch, lambda: sq._saq_rerank(plan, params, q, codes, cand, alive, k,
+                                                   Metric.L2, norms=norms, q_sq=q_sq))
+        _, rr_busy, rr_kernels, _, _ = profile_fn(torch, lambda: sq._saq_rerank(
+            plan, params, q, codes, cand, alive, k, Metric.L2, norms=norms, q_sq=q_sq))
+        wall, busy, kernels, per_kernel, _ = profile_fn(torch, lambda: search(p, rf))
+        dwall, dbusy = profile_fn(torch, search)[:2]
+        log(f"[profile] SAQ cascade p={p} rf={rf} Q={nq} k={k}: stage 1 kernel "
+            f"(segments {head}, k1={rf * k}) {t1:.3f} ms; rerank {t2:.3f} ms (CUDA events, "
+            f"median of 5), {rr_kernels:.0f} device kernels, device busy {rr_busy:.3f} ms; the "
+            f"search: wall {wall:.3f} ms, device busy {busy:.3f} ms, idle share "
+            f"{1 - busy / wall:.3f}, {kernels:.0f} device kernels (torch.profiler, 5 searches); "
+            f"dense search wall {dwall:.3f} ms, busy {dbusy:.3f} ms, idle share "
+            f"{1 - dbusy / dwall:.3f}")
+        for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]:
+            log(f"[profile] SAQ cascade   {ms:9.3f} ms/search  {name[:100]}")
+    del q, cand, xh, d2
+
+
+def coherent_queries(torch, x, asn, nq, cells, seed):
+    """A coherent stream: ``cells`` cells drawn through seeded corpus rows;
+    in each, one member row, the source of the cell's nq/cells queries,
+    each perturbed by N(0, 0.05²/D) per dimension and unit-normalized:
+    every query lies near one of ``cells`` rows, so a cell's queries probe
+    nearly the same cells."""
+    g = torch.Generator(device=x.device).manual_seed(seed)
+    n, d = x.shape
+    picks = asn[torch.randint(0, n, (cells,), generator=g, device=x.device)]
+    rows = []
+    for c in picks.tolist():
+        members = torch.nonzero(asn == c).reshape(-1)
+        rows.append(members[torch.randint(0, members.shape[0], (1,), generator=g,
+                                          device=x.device)])
+    qc = x[torch.cat(rows).repeat_interleave(nq // cells)]
+    qc = qc + (0.05 / d ** 0.5) * torch.randn(qc.shape, generator=g, device=x.device)
+    return qc / torch.linalg.norm(qc, dim=1, keepdim=True)
+
+
+def grouped_reference(torch, index, q, k, groups, nprobe, bf16=False):
+    """Plain witness of a grouped search (f32 unless ``bf16``): the batch
+    padded by its last query, sorted by nearest cell (stable), each group's
+    own tile mask scanned by the gather kernel's plain version, un-permuted
+    → ((ids, scores) as numpy, L2 ascending; Σ masked-in tiles)."""
+    from vq_tpu_torch import Metric
+    from vq_tpu_torch.index.ivf_packed import tile_mask_from_probes
+    from vq_tpu_torch.kernels import packed_scan as pk
+    from vq_tpu_torch.kernels.kmeans import pairwise_sqdist_xc
+    from vq_tpu_torch.kernels.topk import ordered_topk
+    from vq_tpu_torch.methods import saq as sq
+
+    nq = q.shape[0]
+    ng = max(1, min(groups, nq))
+    qp = torch.cat([q, q[-1:].expand((-nq) % ng, -1)])
+    probe = ordered_topk(-pairwise_sqdist_xc(qp, index.centroids), nprobe)[1]
+    order = torch.argsort(probe[:, 0], stable=True)
+    ids = torch.empty((qp.shape[0], k), dtype=torch.int64, device=q.device)
+    dist = torch.empty((qp.shape[0], k), device=q.device)
+    tiles = 0
+    saq = index.quantizer
+    for g in order.reshape(ng, -1):
+        mask = tile_mask_from_probes(probe[g], index.cl_first, index.cl_last,
+                                     index.centroids.shape[0])
+        tiles += int(mask.sum())
+        a = sq.packed_scan_args(saq.plan, saq.params, qp[g], index.cache, k, Metric.L2,
+                                use_bf16=bf16)
+        s, pos = pk.packed_scan_topk_plain(**{**a, "tile_mask": mask})
+        ids[g] = index.ids_sorted[pos.long()].long()
+        dist[g] = torch.sum(qp[g] * qp[g], dim=1, keepdim=True) - s
+    return (ids[:nq].cpu().numpy().astype(np.uint32), dist[:nq].cpu().numpy()), tiles
+
+
+def query_groups(torch, dev, ctx, groups, nq_small, cells, path, nprobe=50, k=100,
+                 profile=True):
+    """Probe-coherent groups on phase 10's IVF-packed index: G in
+    ``groups`` at Q = 256 and ``nq_small`` on phase 10's queries and on a
+    coherent stream (queries near one row of each of ``cells`` cells); G=1
+    = the ungrouped search bit for bit; recall ≥ the ceiling of per-query
+    probing (against the full probe on the same codes); Σ tiles and ms per
+    search, a profile at Q=256; each G > 1 as searched at Q=256 (bf16 on
+    the card) = its per-group plain witness by recall and Σ tiles, and in
+    f32 at Q=nq_small where separated."""
+    import dataclasses as dc
+
+    from vq_tpu_torch._device import bf16_supported
+    from vq_tpu_torch.index.ivf_packed import tile_mask_from_probes
+    from vq_tpu_torch.kernels.adc import _finalize, exact_topk
+    from vq_tpu_torch.kernels.kmeans import pairwise_sqdist_xc
+    from vq_tpu_torch.kernels.topk import ordered_topk
+
+    index, x, asn, saq = ctx["index"], ctx["x"], ctx["asn"], ctx["saq"]
+    index.ivf_cfg = dc.replace(index.ivf_cfg, nprobe=nprobe)
+    metric, bf16 = index.search_cfg.metric, index.search_cfg.use_bf16
+    bf16_here = bf16 and bf16_supported(dev)  # the index's rule: f32 on the CPU
+    k_cl, nb = index.centroids.shape[0], index.cache.factors.shape[1] // 512
+    nq_all = ctx["q"].shape[0]
+    sets = {"phase 10 queries": (ctx["q"], ctx["gt"])}
+    qc = coherent_queries(torch, x, asn, nq_all, cells, seed=23)
+    sets[f"near {cells} rows"] = (qc, exact_topk(qc, x, k)[1].cpu().numpy())
+    decode = decode_corpus(torch, saq, x)
+    for name, (qs, gt) in sets.items():
+        for nq in (qs.shape[0], nq_small):
+            q = qs[:nq]
+            # G=1 is the search as it was before groups: one mask, one pass
+            probe = ordered_topk(-pairwise_sqdist_xc(q, index.centroids), nprobe)[1]
+            mask = tile_mask_from_probes(probe, index.cl_first, index.cl_last, k_cl)
+            s, pos = saq.packed_scan_raw(q, index.cache, k, metric, use_bf16=bf16_here,
+                                         tile_mask=mask)
+            ws, wi = _finalize(s, index.ids_sorted[pos.long()], metric, torch.sum(q * q, 1))
+            s, pos = saq.packed_scan_raw(q, index.cache, k, metric, use_bf16=bf16_here)
+            full = index.ids_sorted[pos.long()].long()
+            ceiling = float((asn[full][..., None] == probe[:, None, :]).any(-1).float().mean())
+            parts = []
+            for g in groups:
+                with counting(path) as got:
+                    ids, scores = index.search_with_scores(q, k, query_groups=g)
+                    tiles = index.last_tiles_scanned
+                    ms = index.sustained_search_s(q, k, query_groups=g, reps=5, outer=3) * 1e3
+                ng = min(g, nq)
+                require_launches(got["packed_scan_topk_gather"], ng * (1 + 1 + 15),
+                                 f"groups G={g}: one gather launch a group a search")
+                check_result(torch, torch.as_tensor(ids.astype(np.int64)),
+                             torch.as_tensor(scores), nq, k, index.num_rows,
+                             f"{name} Q={nq} G={g}")
+                if g == 1:
+                    require(np.array_equal(ids, wi.cpu().numpy().astype(np.uint32)) and
+                            np.array_equal(scores, ws.cpu().numpy()),
+                            f"{name} Q={nq}: G=1 differs from the ungrouped search")
+                rec_full = recall(full.cpu().numpy(), ids, k)
+                require(rec_full >= ceiling - 1e-3, f"{name} Q={nq} G={g}: recall@{k} against "
+                                                    f"the full probe {rec_full} < ceiling "
+                                                    f"{ceiling}")
+                held = ""
+                if g > 1 and nq == qs.shape[0]:
+                    # the search as run (bf16 on the card) against its
+                    # per-group plain witness at the same precision
+                    want, want_tiles = grouped_reference(torch, index, q, k, g, nprobe,
+                                                         bf16=bf16_here)
+                    require(tiles == want_tiles, f"{name} Q={nq} G={g}: Σ tiles {tiles} != "
+                                                 f"{want_tiles}")
+                    rec = recall(want[0], ids, k)
+                    require(rec >= BF16_MIN_RECALL, f"{name} Q={nq} G={g}: recall@{k} against "
+                                                    f"its per-group plain witness {rec}")
+                    held = f", recall@{k} vs its plain witness {rec:.4f}"
+                parts.append(f"G={g}: {ms:.3f} ms/search, QPS {nq / ms * 1e3:.1f}, Σ tiles "
+                             f"{tiles} = {tiles / nb:.4f} of one dense pass, recall@{k} "
+                             f"{recall(gt, ids, k):.4f} (vs the full probe {rec_full:.4f}"
+                             f"{held})")
+            log(f"[phase 15] groups, {name} Q={nq} nprobe={nprobe} k={k} (sustained, CUDA "
+                f"events; per-query probe ceiling vs the full probe {ceiling:.4f}; G=1 = the "
+                f"ungrouped search bit for bit): " + "; ".join(parts))
+            if profile and nq == qs.shape[0]:
+                for g in groups:
+                    qg, ng, _ = index._grouped(q, g)
+                    wall, busy, kernels, per_kernel, runtime = profile_fn(
+                        torch, lambda: index._search(qg, k, nprobe, ng))
+                    gather = sum(ms for kname, ms in per_kernel.items()
+                                 if "packed_scan_kernel" in kname)
+                    syncs = sum(c for rname, c in runtime.items() if "Synchronize" in rname)
+                    log(f"[profile] query groups, {name} Q={nq} G={g}: wall {wall:.3f} ms, "
+                        f"device busy {busy:.3f} ms (gather kernel {gather:.3f}), idle share "
+                        f"{1 - busy / wall:.3f}, {kernels:.0f} device kernels, {syncs:.0f} "
+                        f"synchronizations a search (torch.profiler, 5 searches)")
+        q = qs[:nq_small]
+        index.search_cfg = dc.replace(index.search_cfg, use_bf16=False)
+        try:
+            for g in groups[1:]:
+                got = index.search_with_scores(q, k, query_groups=g)
+                tiles = index.last_tiles_scanned
+                want, want_tiles = grouped_reference(torch, index, q, k, g, nprobe)
+                require(tiles == want_tiles, f"{name} G={g}: Σ tiles {tiles} != {want_tiles}")
+                err, n_sep = where_separated(torch, q, max_sq_norm(torch, decode, want[0]),
+                                             want, got, f"{name} Q={nq_small} G={g} f32 vs "
+                                                        f"its per-group plain witness")
+                log(f"[phase 15] groups, {name} Q={nq_small} G={g} f32 = its per-group plain "
+                    f"witness where separated (max |Δscore| {err:.3e}, ids equal at {n_sep} "
+                    f"separated ranks; Σ tiles {tiles})")
+        finally:
+            index.search_cfg = dc.replace(index.search_cfg, use_bf16=bf16)
+
+
+def approx_searches(torch, dev, ctx4, ctx7, ctx10, path, shards=4):
+    """SearchConfig(approx=True) = approx=False bit for bit: the PQ M=16 flat
+    index at k=256 (the score kernel + the streaming top-k), SQ 8 bits
+    through the generic scan, a sharded PQ index and the IVF-packed index."""
+    import dataclasses as dc
+
+    from vq_tpu_torch import SearchConfig, SQConfig
+    from vq_tpu_torch.dist import ShardedFlatPQIndex, make_mesh
+    from vq_tpu_torch.index.flat import FlatQuantizedIndex
+    from vq_tpu_torch.methods.sq import SQ
+
+    def same(index, q, k, what):
+        cfg = index.search_cfg
+        with counting(path):
+            want = index.search_with_scores(q, k)
+            index.search_cfg = dc.replace(cfg, approx=True)
+            got = index.search_with_scores(q, k)
+        index.search_cfg = cfg
+        require(np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1]),
+                f"{what}: approx=True differs from approx=False")
+        return f"{what} k={k} Q={q.shape[0]}"
+
+    done = []
+    x, q = ctx4["corpus"]()
+    done.append(same(ctx4["index"], q, 256, "PQ M=16 flat"))
+    sidx = ShardedFlatPQIndex(ctx4["pq"], SearchConfig(use_bf16=True),
+                              make_mesh(devices=[dev] * shards)).fit(x)
+    done.append(same(sidx, q, 10, f"sharded PQ M=16 P={shards}"))
+    del x, sidx
+    torch.cuda.empty_cache()
+    x7, q7 = ctx7["corpus"]()
+    sq8 = FlatQuantizedIndex(SQ(SQConfig(8)), SearchConfig(use_bf16=True)).fit(x7)
+    del x7
+    done.append(same(sq8, q7, 10, "SQ 8 bits flat (generic scan)"))
+    del sq8
+    done.append(same(ctx10["index"], ctx10["q"], 100,
+                     f"IVF-packed SAQ nprobe={ctx10['index'].ivf_cfg.nprobe}"))
+    torch.cuda.empty_cache()
+    log("[phase 15] approx=True = approx=False bit for bit (ids and scores): " + "; ".join(done))
+
+
+def phase_search_options(torch, dev, results, ctx4, ctx7, ctx10, n=100_000, d=1024, nq=256,
+                         heads=(1, 2), k1s=(50, 100), rfs=(5, 10), groups=(1, 4, 16),
+                         nq_small=64, cells=8, nprobe=50, profile=True):
+    """This slice's options (module docstring): the packed kernel on segment
+    subsets against its plain version, the SAQ head-segment cascade, the
+    probe-coherent query groups and ``approx``.  Returns the launches of
+    the cascade's, the groups' and the approx searches, by kernel."""
+    t0 = time.perf_counter()
+    path = dict.fromkeys(KERNELS, 0)
+    subset_kernel(torch, dev, results, n, d, nq, heads, k1s)
+    cascade(torch, dev, results, ctx7, heads, rfs, path, profile)
+    query_groups(torch, dev, ctx10, groups, nq_small, cells, path, nprobe, profile=profile)
+    approx_searches(torch, dev, ctx4, ctx7, ctx10, path)
+    log(f"[phase 15] launches of the search options' searches: {path} "
+        f"({time.perf_counter() - t0:.3f} s)")
+    require_launched({name: path[name] for name in ("packed_scan_topk",
+                                                    "packed_scan_topk_gather")},
+                     "the search options never launched the packed or the gather kernel")
+    return path
+
+
 # ---------------------------------------------------------------- phase 14
 # The H100 machine this script is run on has pandas and yaml but no
 # matplotlib (`import matplotlib` fails there).  So `study` runs on the card
@@ -2618,6 +3052,9 @@ def main() -> int:
     paths["phase 12 IVF-packed RankAware"] = {
         "packed_scan_topk_gather": phase_ivf_residual(torch, dev, ivf_ctx)}
     paths["phase 13 sharded serving"] = phase_sharded(torch, dev, pq_ctx, saq_ctx, ivf_ctx)
+    # phase 15 runs here, while phases 4, 7 and 10's indexes are alive
+    paths["phase 15 search options"] = phase_search_options(torch, dev, results, pq_ctx,
+                                                            saq_ctx, ivf_ctx)
     del pq_ctx, saq_ctx, ivf_ctx
     torch.cuda.empty_cache()
     paths["phase 14 harness CLI"] = phase_harness(torch, dev, results)

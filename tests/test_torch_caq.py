@@ -151,3 +151,22 @@ def test_lloyd_normal_quality_matches_jax(levels):
 
     assert mse(got) <= 1.01 * mse(want), (mse(got), mse(want))
     assert (np.diff(got) >= 0).all()
+
+
+@pytest.mark.parametrize("bits", [1, 3, 8])
+def test_caq_cosine_matches_jax(bits):
+    """cos(o, ô) of the same codes, within 1e-6 (f32 sums in another order);
+    the adjusted codes' cosine is at least the rounded codes'."""
+    rng = np.random.default_rng(bits)
+    o = rng.standard_normal((300, 48)).astype(np.float32)
+    o[0] = 0.0  # a zero row: the clamp keeps it finite
+    codes = rng.integers(0, 1 << bits, (300, 48)).astype(np.int32)
+    want = np.asarray(jcaq.caq_cosine(jnp.asarray(o), jnp.asarray(codes), bits))
+    got = tcaq.caq_cosine(torch.from_numpy(o), torch.from_numpy(codes), bits)
+    assert got.shape == (300,) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+    ou = torch.from_numpy(o[1:] / np.abs(o[1:]).max(axis=1, keepdims=True))
+    base = tcaq.caq_encode(ou, bits, rounds=0)
+    adj = tcaq.caq_encode(ou, bits, rounds=6)
+    assert bool((tcaq.caq_cosine(ou, adj.codes, bits)
+                 >= tcaq.caq_cosine(ou, base.codes, bits) - 1e-6).all())

@@ -279,3 +279,42 @@ def test_exits_nonzero_without_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert cs.main() != 0
     assert "ok" not in capsys.readouterr().out
+
+
+def test_phase_search_options_rehearsal(cpu_smoke, monkeypatch):
+    """Phase 15 on phases 4, 7 and 10 run at tiny sizes: the segment-subset
+    checks at N=3000, D=128 (SAQ bpd=2 there has two segments: head 1 and
+    the tail), the cascade on phase 7's N=4000 index, groups G = 1, 4, 16
+    at Q = 16 and 8 on phase 10's N=6000 index (K=32, nprobe 8), on its
+    queries and on a coherent stream of 2 cells, and approx on all four
+    indexes."""
+    monkeypatch.setattr(cs, "profile_search", lambda *a, **k: None)
+    _, pq_ctx = cs.phase_main(torch, cpu_smoke, n=2002, d=32, nq=8, profile=False)
+    _, saq_ctx = cs.phase_saq_main(torch, cpu_smoke, n=4000, d=128, nq=8, profile=False)
+    _, ivf_ctx = cs.phase_ivf_main(torch, cpu_smoke, n=6000, d=64, nq=16, k_cl=32,
+                                   nprobes=(8,), nq_small=4, profile=False)
+    results = {}
+    path = cs.phase_search_options(torch, cpu_smoke, results, pq_ctx, saq_ctx, ivf_ctx,
+                                   n=3000, d=128, nq=8, heads=(1,), k1s=(5, 20), rfs=(5, 10),
+                                   groups=(1, 4, 16), nq_small=8, cells=2, nprobe=8,
+                                   profile=False)
+    assert path == dict.fromkeys(cs.KERNELS, 0)
+    assert list(results["packed_scan_topk"]["times"]) == ["SAQ uniform segments (0,) k=20"]
+
+
+def test_packed_bound_counts_the_factor_rows_a_call_reads():
+    """A segment subset reads its own words and its own scale and shift
+    rows; NIP reads the norm row and no shift."""
+    from vq_tpu_torch.kernels.packed_scan import make_segspec
+
+    segs = tuple(make_segspec(2, 64, "uniform", s) for s in range(4))
+    words = [torch.empty((1024 // 16, 64), dtype=torch.int32, device="meta")] * 4
+    a = dict(q_cat=torch.empty((8, 64), device="meta"), factors=torch.empty((9, 1024)),
+             words=words[:1], segs=segs[1:2], lv_tables=(), k=10, limit=1024,
+             metric_kind="l2", r2_cols=(5,), norm_col=8, use_bf16=True)
+    assert cs.factor_rows_read(a) == 2
+    assert cs.factor_rows_read({**a, "metric_kind": "nip"}) == 2
+    assert cs.factor_rows_read({**a, "segs": segs, "words": words, "r2_cols": (4, 5, 6, 7)}) == 8
+    ms, by = cs.packed_bound(torch, a)
+    want = 1024 * (4 * 64 / 16 + 2 * 4) + 8 * 65 * 4 + 8 * 10 * 8
+    assert by == "bytes" and ms == pytest.approx(want / 3.35e12 * 1e3)

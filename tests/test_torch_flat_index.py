@@ -10,6 +10,8 @@ except inside runs of scores equal to 1e-5 relative, whose order f32 sums
 taken in another order may swap; scores agree to 1e-5 relative.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -142,9 +144,25 @@ def test_nine_bit_pq_footprint_and_search_equal_jax():
     assert own.codes.dtype == torch.uint16 and own.memory_footprint() == 68_768
 
 
-def test_approx_topk_is_refused():
-    with pytest.raises(ValueError, match="approx"):
-        FlatQuantizedIndex(PQ(CFG), SearchConfig(approx=True))
+@pytest.mark.parametrize("k", [10, 150])
+def test_approx_topk_gives_the_jax_packages_cpu_result(data, k):
+    """SearchConfig(approx=True) on the PQ index (k=150 > 128: the
+    streaming route; one 4000-wide tile, where the JAX package calls
+    ``lax.approx_max_k``): off the TPU JAX returns its exact result bit for
+    bit, and so does the port; the two agree as above."""
+    x, q = data
+    j, t = _pair(x, Metric.L2)
+    exact_j, exact_t = j.search_with_scores(q, k), t.search_with_scores(q, k)
+    j.search_cfg = dataclasses.replace(j.search_cfg, approx=True)
+    t.search_cfg = dataclasses.replace(t.search_cfg, approx=True)
+    wi, ws = j.search_with_scores(q, k)
+    gi, gs = t.search_with_scores(q, k)
+    np.testing.assert_array_equal(wi, exact_j[0])
+    np.testing.assert_array_equal(ws, exact_j[1])
+    np.testing.assert_array_equal(gi, exact_t[0])
+    np.testing.assert_array_equal(gs, exact_t[1])
+    assert_same_ranking(gi, wi, ws)
+    np.testing.assert_allclose(gs, ws, rtol=1e-5, atol=1e-4)
 
 
 SAQ_CFG = SAQConfig(bits_per_dim=2.0, block_dims=16)

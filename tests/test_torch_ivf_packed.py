@@ -29,7 +29,6 @@ import pytest
 import torch
 
 from vq_tpu.core.config import IVFConfig, KMeansConfig, Metric, RaBitQConfig, SAQConfig
-from vq_tpu.core.config import SearchConfig
 from vq_tpu.index import ivf_packed as jivf
 from vq_tpu.index.ivf import chunked_assign as jax_chunked_assign
 from vq_tpu.kernels.kmeans import kmeans as jax_kmeans
@@ -43,7 +42,6 @@ from vq_tpu_torch.index import ivf_packed as tivf
 from vq_tpu_torch.kernels.adc import _finalize
 from vq_tpu_torch.kernels import packed_scan as tps
 from vq_tpu_torch.kernels.packed_scan import TILE
-from vq_tpu_torch.methods.rabitq import RaBitQ
 from vq_tpu_torch.methods import saq as tsaq
 from vq_tpu_torch.methods.saq import SAQ
 
@@ -332,11 +330,95 @@ def test_sustained_search_and_mse(port_index, data):
     assert 0 < t.reconstruction_mse(x, 1000) == t.quantizer.reconstruction_mse(x, 1000)
 
 
-def test_query_groups_are_not_ported(port_index, data):
-    with pytest.raises(NotImplementedError, match="query_groups"):
-        tivf.IvfPackedFlatIndex(RaBitQ(convert.config_from_jax(RABITQ_CFG)), query_groups=2)
-    with pytest.raises(NotImplementedError, match="query_groups"):
-        port_index.search_with_scores(data[1], 5, query_groups=2)
-    with pytest.raises(ValueError, match="approx"):
-        tivf.IvfPackedFlatIndex(SAQ(convert.config_from_jax(SAQ_CFG)),
-                                search_cfg=convert.config_from_jax(SearchConfig(approx=True)))
+# ------------------------------------------------- probe-coherent query groups
+@pytest.mark.parametrize("groups,nq", [(2, 12), (4, 12), (4, 10), (4, 3)])
+def test_query_groups_search_like_jax(saq_pair, data, groups, nq):
+    """G groups on the same cache: a batch G divides, one it does not
+    (padded by repeating its last query), one smaller than G (G becomes the
+    batch size).  Ids, scores and the tiles summed over the groups are
+    JAX's."""
+    j, t = saq_pair
+    q = data[1][:nq]
+    _set(j, False, 1, Metric.L2)
+    _set(t, True, 1, TMetric.L2)
+    wi, ws = j.search_with_scores(q, 10, query_groups=groups)
+    gi, gs = t.search_with_scores(q, 10, query_groups=groups)
+    assert gi.dtype == np.uint32 and gi.shape == (nq, 10) and gs.shape == (nq, 10)
+    assert_same_ranking(gi, wi, ws)
+    assert_close_scores(gs, ws)
+    assert t.last_tiles_scanned == j.last_tiles_scanned
+
+
+def test_each_query_group_is_a_search_of_its_queries_alone(saq_pair, data):
+    """The port's G=4 search of 10 queries (2 pad rows repeat the last):
+    each query's result is, bit for bit, that of a G=1 search of its
+    group's queries, the groups cut from the stable sort by nearest cell;
+    the tiles are the sum of those searches'.  G=1 is the default search
+    bit for bit."""
+    _, t = saq_pair
+    _set(t, True, 2, TMetric.IP)
+    q = torch.from_numpy(data[1][:10])
+    gi, gs = t.search_with_scores(q, 7, query_groups=4)
+    tiles = t.last_tiles_scanned
+    qp = torch.cat([q, q[-1:].expand(2, -1)])
+    near = torch.argmin(torch.cdist(qp, t.centroids), dim=1)
+    order = torch.argsort(near, stable=True)
+    want_tiles = 0
+    for g in order.reshape(4, 3):
+        wi, ws = t.search_with_scores(qp[g], 7)
+        want_tiles += t.last_tiles_scanned
+        for row, i in enumerate(g.tolist()):
+            if i < 10:
+                np.testing.assert_array_equal(gi[i], wi[row])
+                np.testing.assert_array_equal(gs[i], ws[row])
+    assert tiles == want_tiles
+    one = t.search_with_scores(q, 7, query_groups=1)
+    default = t.search_with_scores(q, 7)
+    np.testing.assert_array_equal(one[0], default[0])
+    np.testing.assert_array_equal(one[1], default[1])
+
+
+def test_query_groups_default_save_load_and_sustained(port_index, data, tmp_path):
+    """An index built with query_groups=3 searches in 3 groups by default,
+    keeps it through save/load and times its grouped search."""
+    x, q = data
+    t = tivf.IvfPackedFlatIndex(port_index.quantizer, port_index.ivf_cfg, query_groups=3)
+    t.fit(torch.from_numpy(x), coarse=(port_index.centroids, torch.argmin(
+        torch.cdist(torch.from_numpy(x), port_index.centroids), dim=1)))
+    _set(t, True, 1, TMetric.L2)
+    ids, sc = t.search_with_scores(q, 5)
+    tiles = t.last_tiles_scanned
+    want = t.search_with_scores(q, 5, query_groups=3)
+    np.testing.assert_array_equal(ids, want[0])
+    np.testing.assert_array_equal(sc, want[1])
+    path = str(tmp_path / "ivfpk_g3.pkl")
+    t.save(path)
+    back = tivf.IvfPackedFlatIndex(SAQ(convert.config_from_jax(SAQ_CFG), device="cpu")).load(path)
+    assert back.query_groups == 3
+    ids2, sc2 = back.search_with_scores(q, 5)
+    np.testing.assert_array_equal(ids, ids2)
+    np.testing.assert_array_equal(sc, sc2)
+    assert back.last_tiles_scanned == tiles > 0
+    assert 0 < back.sustained_search_s(q, 5, reps=2, outer=1) < 60
+
+
+def test_approx_is_accepted_and_ignored_like_jax(saq_pair, data):
+    """SearchConfig(approx=True), which the JAX package's probed-tile index
+    ignores: JAX's result, and the port's exact one bit for bit."""
+    j, t = saq_pair
+    q = data[1]
+    _set(j, False, 3, Metric.L2)
+    _set(t, True, 3, TMetric.L2)
+    exact = t.search_with_scores(q, 10)
+    for index in (j, t):
+        index.search_cfg = dataclasses.replace(index.search_cfg, approx=True)
+    j._search_fn = None
+    wi, ws = j.search_with_scores(q, 10)
+    gi, gs = t.search_with_scores(q, 10)
+    for index in (j, t):  # the fixture is shared
+        index.search_cfg = dataclasses.replace(index.search_cfg, approx=False)
+    j._search_fn = None
+    np.testing.assert_array_equal(gi, exact[0])
+    np.testing.assert_array_equal(gs, exact[1])
+    assert_same_ranking(gi, wi, ws)
+    assert_close_scores(gs, ws)

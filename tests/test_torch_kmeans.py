@@ -16,10 +16,10 @@ import torch
 
 from vq_tpu.core.config import KMeansConfig
 from vq_tpu_torch._device import make_generator
-from vq_tpu_torch.kernels import kmeans as tkm
 
-# the JAX package's kernels/__init__ exports a function named `kmeans`
+# each package's kernels/__init__ exports a function named `kmeans`
 jkm = importlib.import_module("vq_tpu.kernels.kmeans")
+tkm = importlib.import_module("vq_tpu_torch.kernels.kmeans")
 
 torch.set_num_threads(1)
 

@@ -150,8 +150,6 @@ def test_save_load_roundtrip(pair, data, tmp_path):
 def test_refusals(pair, data):
     _, _, t, jc = pair
     q = torch.from_numpy(data[1])
-    with pytest.raises(ValueError, match="prune_segments"):
-        t.scan_topk(q, torch.from_numpy(jc), 10, Metric.L2, prune_segments=1)
     cache = t.prepare_scan(torch.from_numpy(jc))  # built without norms
     with pytest.raises(ValueError, match="norms"):
         t.scan_topk(q, torch.from_numpy(jc), 10, Metric.NIP, cache=cache)

@@ -74,6 +74,23 @@ def test_sharded_pq_index_matches_jax_and_the_flat_index(data, metric):
         assert_where_separated(gi, gs, fi, fs, tol)
 
 
+def test_sharded_pq_index_accepts_approx_like_jax(data):
+    """SearchConfig(approx=True), which the JAX package's sharded indexes
+    ignore: the port's search is its exact one bit for bit, and the JAX
+    package's approx search where separated."""
+    x, q = data
+    j, t = _pq_pair(x, Metric.L2)
+    exact = t.search_with_scores(q, 10)
+    j.search_cfg = dataclasses.replace(j.search_cfg, approx=True)
+    t.search_cfg = dataclasses.replace(t.search_cfg, approx=True)
+    gi, gs = t.search_with_scores(q, 10)
+    np.testing.assert_array_equal(gi, exact[0])
+    np.testing.assert_array_equal(gs, exact[1])
+    cb = t.pq.params.codebooks
+    tol = score_tol(q, decode_pq(cb, torch.cat(t.codes)[:len(x)]).numpy())
+    assert_where_separated(gi, gs, *j.search_with_scores(q, 10), tol)
+
+
 def test_sharded_pq_fit_and_ingestion_give_the_same_index(data):
     """The port's own fit (the converted codebooks, its own encode) and the
     ingestion path (``add_sharded``) hold the same codes and search alike;

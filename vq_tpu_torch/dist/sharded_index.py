@@ -50,8 +50,6 @@ class _ShardedFlat(BaseSearchIndex):
 
     def __init__(self, quantizer: BaseQuantizer, search_cfg: SearchConfig = SearchConfig(),
                  mesh=None):
-        if search_cfg.approx:
-            raise ValueError("approximate top-k (SearchConfig.approx) is not ported")
         self.quantizer = quantizer
         self.search_cfg = search_cfg
         self.mesh = mesh if mesh is not None else make_mesh()

@@ -66,8 +66,6 @@ class ShardedIVFIndex(BaseSearchIndex):
 
     def __init__(self, quantizer: BaseQuantizer, ivf_cfg: IVFConfig = IVFConfig(),
                  search_cfg: SearchConfig = SearchConfig(), mesh=None):
-        if search_cfg.approx:
-            raise ValueError("approximate top-k (SearchConfig.approx) is not ported")
         self.quantizer = quantizer
         self.ivf_cfg = ivf_cfg
         self.search_cfg = search_cfg

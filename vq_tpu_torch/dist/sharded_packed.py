@@ -64,8 +64,6 @@ class ShardedPackedFlatIndex(BaseSearchIndex):
 
     def __init__(self, quantizer: BaseQuantizer, search_cfg: SearchConfig = SearchConfig(),
                  mesh=None):
-        if search_cfg.approx:
-            raise ValueError("approximate top-k (SearchConfig.approx) is not ported")
         self.quantizer = quantizer
         self.search_cfg = search_cfg
         self.mesh = mesh if mesh is not None else make_mesh()

@@ -25,8 +25,6 @@ class FlatQuantizedIndex(BaseSearchIndex):
     name = "flat"
 
     def __init__(self, quantizer: BaseQuantizer, search_cfg: SearchConfig = SearchConfig()):
-        if search_cfg.approx:
-            raise ValueError("approximate top-k (SearchConfig.approx) is not ported")
         self.quantizer = quantizer
         self.search_cfg = search_cfg
         self.codes: Optional[torch.Tensor] = None
@@ -57,7 +55,8 @@ class FlatQuantizedIndex(BaseSearchIndex):
         scores, idx = self.quantizer.scan_topk(
             as_f32(queries, self.device), self.codes, k, self.search_cfg.metric,
             norms=self.norms, tile_rows=self.search_cfg.tile_rows,
-            use_bf16=self.search_cfg.use_bf16, cache=self._scan_cache)
+            use_bf16=self.search_cfg.use_bf16, approx=self.search_cfg.approx,
+            cache=self._scan_cache)
         return idx.cpu().numpy().astype(np.uint32), scores.cpu().numpy()
 
     def memory_footprint(self) -> int:

@@ -16,8 +16,15 @@
 Semantics: candidates are all rows in tiles OVERLAPPING a probed cluster of
 the whole batch — a superset of each query's probed lists — scored with the
 flat packed scores; a full probe equals the flat scan of the same cache.
-``query_groups`` > 1 (the JAX package's probe-coherent grouping, which
-never won a measurement there) is not ported and raises.
+
+Probe-coherent query groups (``query_groups`` = G > 1, the JAX package's
+option, off by default): the batch, padded to a multiple of G by repeating
+its last query, is sorted by nearest coarse cell (a stable sort) and cut
+into G groups; each group gets its own tile mask and gather-kernel launch,
+in order (JAX's ``lax.map``), and the results are put back in the batch's
+order.  A group's mask is the union of coherent queries' probes, so it can
+be far smaller than the batch's; ``last_tiles_scanned`` is the sum over the
+groups, which can exceed one dense pass when the groups do not cohere.
 """
 
 from __future__ import annotations
@@ -48,8 +55,10 @@ def tile_mask_from_probes(probes: torch.Tensor, cl_first: torch.Tensor,
     a tile is scanned iff any cluster in its [first, last] range is probed —
     the inclusive prefix sum of the probed flag makes the range test a
     difference of two gathers."""
+    # index_fill_ takes its value as a scalar argument; ``probed[idx] = 1``
+    # copies a host tensor to the card and synchronizes the stream
     probed = torch.zeros((k_cl,), dtype=torch.int32, device=probes.device)
-    probed[probes.reshape(-1).long()] = 1
+    probed.index_fill_(0, probes.reshape(-1).long(), 1)
     pref = torch.cumsum(probed, 0, dtype=torch.int32)
     hi = pref[cl_last.long()]
     lo = torch.where(cl_first > 0, pref[(cl_first - 1).clamp(min=0).long()],
@@ -74,9 +83,6 @@ class IvfPackedFlatIndex(BaseSearchIndex):
 
     def __init__(self, quantizer: BaseQuantizer, ivf_cfg: IVFConfig = IVFConfig(),
                  search_cfg: SearchConfig = SearchConfig(), query_groups: int = 1):
-        self._check_groups(query_groups)
-        if search_cfg.approx:
-            raise ValueError("approximate top-k (SearchConfig.approx) is not ported")
         self.quantizer = quantizer
         self.ivf_cfg = ivf_cfg
         self.search_cfg = search_cfg
@@ -88,12 +94,6 @@ class IvfPackedFlatIndex(BaseSearchIndex):
         self.cl_last: Optional[torch.Tensor] = None  # (nb,) i32
         self.num_rows = 0
         self._last_tiles = None  # device scalar; synced when read
-
-    @staticmethod
-    def _check_groups(query_groups) -> None:
-        if query_groups is not None and int(query_groups) > 1:
-            raise NotImplementedError("query_groups > 1 (probe-coherent grouping) is not "
-                                      "ported")
 
     @property
     def device(self) -> torch.device:
@@ -146,32 +146,63 @@ class IvfPackedFlatIndex(BaseSearchIndex):
     def _nprobe(self) -> int:
         return min(self.ivf_cfg.nprobe, int(self.centroids.shape[0]))
 
-    def _search(self, q: torch.Tensor, k: int, nprobe: int):
-        """One search on the device, no host sync → (scores (Q, k) in the
-        metric's form, row ids (Q, k), masked-in tile count as a device
+    def _grouped(self, queries, query_groups: Optional[int]):
+        """→ (queries on the device, padded to a multiple of the group count
+        by repeating the last query, the group count, the real count)."""
+        q = as_f32(queries, self.device)
+        nq = q.shape[0]
+        ng = self.query_groups if query_groups is None else query_groups
+        ng = max(1, min(int(ng), nq))
+        pad = (-nq) % ng
+        if pad:  # not zeros: a zero row would probe the origin's cells
+            q = torch.cat([q, q[-1:].expand(pad, -1)])
+        return q, ng, nq
+
+    def _scan_group(self, q: torch.Tensor, probe: torch.Tensor, k: int, nprobe: int):
+        """One tile mask from the probes of ``q`` and one gather-kernel pass
+        → maximize-form (scores, scan positions, masked-in tiles as a device
         scalar)."""
-        metric = self.search_cfg.metric
         k_cl = int(self.centroids.shape[0])
         nb = -(-self.num_rows // TILE)
-        _, probe = ordered_topk(-pairwise_sqdist_xc(q, self.centroids), nprobe)
         mask = tile_mask_from_probes(probe, self.cl_first, self.cl_last, k_cl)
         s, pos = self.quantizer.packed_scan_raw(
-            q, self.cache, k, metric,
+            q, self.cache, k, self.search_cfg.metric,
             use_bf16=self.search_cfg.use_bf16 and bf16_supported(q.device),
             tile_mask=mask, mask_cap=default_mask_cap(nb, nprobe, self.num_rows, k_cl))
+        return s, pos, mask.sum()
+
+    def _search(self, q: torch.Tensor, k: int, nprobe: int, groups: int = 1):
+        """One search on the device, no host sync → (scores (Q, k) in the
+        metric's form, row ids (Q, k), masked-in tiles summed over the
+        ``groups`` probe-coherent groups as a device scalar).  Q must be a
+        multiple of ``groups``."""
+        _, probe = ordered_topk(-pairwise_sqdist_xc(q, self.centroids), nprobe)
+        if groups > 1:
+            # sort the batch by nearest cell, so each group's probes cohere;
+            # a stable sort, as jnp.argsort: ties decide a query's group
+            order = torch.argsort(probe[:, 0], stable=True)
+            parts = [self._scan_group(q[g], probe[g], k, nprobe)
+                     for g in order.reshape(groups, -1)]
+            inv = torch.argsort(order)
+            s = torch.cat([p[0] for p in parts])[inv]
+            pos = torch.cat([p[1] for p in parts])[inv]
+            tiles = torch.stack([p[2] for p in parts]).sum()
+        else:
+            s, pos, tiles = self._scan_group(q, probe, k, nprobe)
         gid = self.ids_sorted[torch.clamp(pos.long(), 0, self.ids_sorted.shape[0] - 1)]
-        scores, ids = _finalize(s, gid, metric, torch.sum(q * q, dim=-1))
-        return scores, ids, mask.sum()
+        scores, ids = _finalize(s, gid, self.search_cfg.metric, torch.sum(q * q, dim=-1))
+        return scores, ids, tiles
 
     def search_with_scores(self, queries, k: int = 10, query_groups: Optional[int] = None
                            ) -> Tuple[np.ndarray, np.ndarray]:
-        """(nq, D) → ((nq, k) uint32 ids, (nq, k) scores) as numpy."""
-        self._check_groups(query_groups)
-        q = as_f32(queries, self.device)
-        scores, ids, tiles = self._search(q, k, self._nprobe())
+        """(nq, D) → ((nq, k) uint32 ids, (nq, k) scores) as numpy.
+        ``query_groups`` = G > 1 runs G probe-coherent groups (module
+        docstring); None takes the index's default."""
+        q, ng, nq = self._grouped(queries, query_groups)
+        scores, ids, tiles = self._search(q, k, self._nprobe(), ng)
         self._last_tiles = tiles  # synced only when last_tiles_scanned is read
-        ids = ids.cpu().numpy()
-        return np.where(ids < 0, 0, ids).astype(np.uint32), scores.cpu().numpy()
+        ids = ids[:nq].cpu().numpy()
+        return np.where(ids < 0, 0, ids).astype(np.uint32), scores[:nq].cpu().numpy()
 
     def sustained_search_s(self, queries, k: int = 10, query_groups: Optional[int] = None,
                            reps: int = 5, outer: int = 3) -> float:
@@ -180,11 +211,10 @@ class IvfPackedFlatIndex(BaseSearchIndex):
         card the window is timed with CUDA events (the searches enqueue
         without a host sync, so the window holds the device's time and any
         gap the host leaves); on the CPU with the host clock."""
-        self._check_groups(query_groups)
-        q = as_f32(queries, self.device)
+        q, ng, _ = self._grouped(queries, query_groups)
         nprobe = self._nprobe()
         cuda = q.device.type == "cuda"
-        self._search(q, k, nprobe)
+        self._search(q, k, nprobe, ng)
         best = math.inf
         for _ in range(outer):
             if cuda:
@@ -192,23 +222,23 @@ class IvfPackedFlatIndex(BaseSearchIndex):
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
                 for _ in range(reps):
-                    self._search(q, k, nprobe)
+                    self._search(q, k, nprobe, ng)
                 end.record()
                 end.synchronize()
                 t = start.elapsed_time(end) / 1e3
             else:
                 t0 = time.perf_counter()
                 for _ in range(reps):
-                    self._search(q, k, nprobe)
+                    self._search(q, k, nprobe, ng)
                 t = time.perf_counter() - t0
             best = min(best, t / reps)
         return best
 
     @property
     def last_tiles_scanned(self) -> int:
-        """Tiles the last search's mask let through (the variance prune may
-        skip further tiles inside the kernel).  Reading it syncs the device
-        scalar."""
+        """Tiles the last search's masks let through, summed over its query
+        groups (the variance prune may skip further tiles inside the
+        kernel).  Reading it syncs the device scalar."""
         return int(self._last_tiles) if self._last_tiles is not None else 0
 
     last_tiles_masked_in = last_tiles_scanned

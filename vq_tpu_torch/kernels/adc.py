@@ -64,13 +64,23 @@ def _streaming_topk(
     num_queries: int,
     k: int,
     tile: int,
+    approx: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fold per-tile scores (maximize) into a running (Q, k) top-k.
 
     ``score_tile_fn(start)`` returns (Q, w) f32 scores of rows start … start+w
     (w ≤ tile), with out-of-range columns already −inf.  Exact, in
     ``lax.top_k``'s order.
+
+    ``approx`` is the JAX package's flag for ``lax.approx_max_k`` (recall
+    target 0.99) on tiles ≥ 512 wide, which exists because the TPU's exact
+    top-k is a full sort and its partial reduction is ~2× faster there.  Off
+    the TPU that call returns ``lax.top_k``'s result, and the per-tile
+    selection here stays the exact ``ordered_topk`` whatever the flag says:
+    it meets the 0.99 recall target by construction and equals what the JAX
+    package computes on the CPU.
     """
+    del approx  # exact selection meets the approximate one's recall target
     k = min(k, n)
     best_s = best_i = None
     for start in range(0, n, tile):
@@ -132,14 +142,16 @@ def scan_codes_topk(
     tile_rows: int = 16384,
     use_bf16: bool = True,
     num_valid: Optional[int] = None,
+    approx: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused ADC scan over a PQ-coded corpus with streaming top-k.
 
     queries (Q, D) f32; codes (N, M) integer PQ codes; codebooks
     (M, K, dsub) f32; norms (N,) original ‖x‖, required for Metric.NIP;
-    num_valid masks rows with id ≥ num_valid.  Returns (scores (Q, k),
-    ids (Q, k) i32): squared L2 distances for L2 (ascending), inner
-    products otherwise (descending).
+    num_valid masks rows with id ≥ num_valid; ``approx`` goes to the plain
+    route's ``_streaming_topk`` (the kernels' routes keep an exact top-k).
+    Returns (scores (Q, k), ids (Q, k) i32): squared L2 distances for L2
+    (ascending), inner products otherwise (descending).
     """
     dev = codes.device
     n = codes.shape[0]
@@ -180,7 +192,7 @@ def scan_codes_topk(
             s = ip / torch.clamp(nt, min=1e-30)[None, :]
         return _col_mask(s, start, limit)
 
-    scores, idx = _streaming_topk(score_tile, n, num_q, k, tile)
+    scores, idx = _streaming_topk(score_tile, n, num_q, k, tile, approx=approx)
     return _finalize(scores, idx, metric, q_sq)
 
 
@@ -194,6 +206,7 @@ def scan_generic_topk(
     tile_rows: int = 16384,
     use_bf16: bool = True,
     num_valid: Optional[int] = None,
+    approx: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Decode→score→top-k scan for any quantizer: ``decode_fn(codes_tile)
     → (T, D)``.  The generic path behind FlatQuantizedIndex for non-PQ
@@ -221,7 +234,7 @@ def scan_generic_topk(
             s = ip / torch.clamp(nt, min=1e-30)[None, :]
         return _col_mask(s, start, limit)
 
-    scores, idx = _streaming_topk(score_tile, n, num_q, k, tile)
+    scores, idx = _streaming_topk(score_tile, n, num_q, k, tile, approx=approx)
     return _finalize(scores, idx, metric, q_sq)
 
 

@@ -161,3 +161,11 @@ def caq_decode_levels(codes: torch.Tensor, rescale: torch.Tensor,
                       levels: torch.Tensor) -> torch.Tensor:
     """(N, D) codes + (N,) rescale + (D, L) levels → (N, D) estimate of o."""
     return _dequant_levels(codes, levels) * rescale[:, None]
+
+
+def caq_cosine(o: torch.Tensor, codes: torch.Tensor, bits: int) -> torch.Tensor:
+    """cos(o, ô) per vector — the quantity code adjustment maximizes."""
+    oa = _dequant_unit(codes, bits)
+    ip = torch.sum(o * oa, dim=1)
+    return ip / torch.clamp(torch.linalg.norm(o, dim=1) * torch.linalg.norm(oa, dim=1),
+                            min=1e-20)

@@ -86,14 +86,14 @@ class BaseQuantizer:
 
     # -- provided ----------------------------------------------------------
     def scan_topk(self, queries, codes, k: int, metric, norms=None,
-                  tile_rows: int = 16384, use_bf16: bool = True, cache=None,
-                  num_valid=None):
+                  tile_rows: int = 16384, use_bf16: bool = True, approx: bool = False,
+                  cache=None, num_valid=None):
         """ADC search over this method's codes (tensors in and out).  ``cache``
         is what ``prepare_scan`` returned (unused by the generic path)."""
         from vq_tpu_torch.kernels.adc import scan_generic_topk
 
         return scan_generic_topk(queries, codes, self.decode_fn(), k, metric, norms,
-                                 tile_rows, use_bf16, num_valid=num_valid)
+                                 tile_rows, use_bf16, num_valid=num_valid, approx=approx)
 
     def prepare_scan(self, codes, norms=None, num_queries=8):
         """Optionally build a scan-optimized corpus layout once at index fit;
@@ -182,3 +182,7 @@ class BaseQuantizer:
         with open(path, "rb") as f:
             self._restore_payload(pickle.load(f))
         return self
+
+    def save_codebooks(self, path: str) -> None:
+        """Codebook export hook: by default the whole of ``save``."""
+        self.save(path)

@@ -117,12 +117,12 @@ class OPQ(BaseQuantizer):
         return lambda ct: decode(params, ct)
 
     def scan_topk(self, queries, codes, k, metric, norms=None, tile_rows=16384,
-                  use_bf16=True, cache=None, num_valid=None):
+                  use_bf16=True, approx=False, cache=None, num_valid=None):
         """The rotation is orthogonal: rotate the queries once (f32), then
         the PQ scan in rotated space ranks exactly as L2/IP/NIP on x̂."""
         qr = as_f32(queries, self.device) @ self.params.rotation
         return scan_codes_topk(qr, codes, self.params.codebooks, k, metric, norms, tile_rows,
-                               use_bf16, num_valid=num_valid)
+                               use_bf16, num_valid=num_valid, approx=approx)
 
     def code_bytes_per_vector(self) -> float:
         bytes_per_code = 1 if self.cfg.num_bits <= 8 else 2

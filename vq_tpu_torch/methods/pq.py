@@ -114,9 +114,9 @@ class PQ(BaseQuantizer):
         return lambda ct: decode_pq(codebooks, ct)
 
     def scan_topk(self, queries, codes, k, metric, norms=None, tile_rows=16384,
-                  use_bf16=True, cache=None, num_valid=None):
+                  use_bf16=True, approx=False, cache=None, num_valid=None):
         return scan_codes_topk(queries, codes, self.params.codebooks, k, metric, norms,
-                               tile_rows, use_bf16, num_valid=num_valid)
+                               tile_rows, use_bf16, num_valid=num_valid, approx=approx)
 
     def code_bytes_per_vector(self) -> float:
         bytes_per_code = 1 if self.cfg.num_bits <= 8 else 2

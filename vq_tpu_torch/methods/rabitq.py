@@ -214,7 +214,8 @@ def _packed_scan(params: RaBitQParams, queries, packed: PackedCorpus, k, metric,
 
 def scan_topk(params: RaBitQParams, queries, codes: torch.Tensor, k: int, metric: Metric,
               num_bits: int, norms=None, tile_rows: int = 16384, use_bf16: bool = True,
-              num_valid: Optional[int] = None, packed_cache: Optional[PackedCorpus] = None,
+              num_valid: Optional[int] = None, approx: bool = False,
+              packed_cache: Optional[PackedCorpus] = None,
               use_packed: Optional[bool] = None, prune_tiles: Optional[bool] = None):
     """RaBitQ search → (Q, k) scores in the metric's form, (Q, k) ids: the
     packed kernel for n ≥ 512 and k ≤ 128 (prune on when the cache's hint
@@ -273,7 +274,7 @@ def scan_topk(params: RaBitQParams, queries, codes: torch.Tensor, k: int, metric
         col = start + torch.arange(s_hat.shape[0], device=dev)
         return torch.where(col[None, :] < limit, s, torch.full_like(s, -np.inf))
 
-    scores, idx = _streaming_topk(score_tile, n, num_q, k, tile)
+    scores, idx = _streaming_topk(score_tile, n, num_q, k, tile, approx=approx)
     return _finalize(scores, idx, metric, q_sq)
 
 
@@ -308,10 +309,12 @@ class RaBitQ(BaseQuantizer):
         return lambda x: encode(params, x, bits)
 
     def scan_topk(self, queries, codes, k, metric, norms=None, tile_rows=16384,
-                  use_bf16=True, cache=None, num_valid=None, prune_tiles=None):
+                  use_bf16=True, approx=False, cache=None, num_valid=None,
+                  prune_tiles=None):
         return scan_topk(self.params, queries, codes, k, metric, self.cfg.num_bits,
                          norms=norms, tile_rows=tile_rows, use_bf16=use_bf16,
-                         num_valid=num_valid, packed_cache=cache, prune_tiles=prune_tiles)
+                         num_valid=num_valid, approx=approx, packed_cache=cache,
+                         prune_tiles=prune_tiles)
 
     def prepare_scan(self, codes, norms=None, num_queries=8):
         """The PackedCorpus scan cache (unsorted), built once at index fit."""

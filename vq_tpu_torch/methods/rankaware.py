@@ -306,7 +306,8 @@ def _packed_scan(params, bits, queries, packed, k, metric, num_valid=None, use_b
 
 def scan_topk(params, bits, layout, packing: str, queries, codes: torch.Tensor, k: int,
               metric: Metric, norms=None, tile_rows: int = 16384, use_bf16: bool = True,
-              num_valid: Optional[int] = None, packed_cache: Optional[PackedCorpus] = None,
+              num_valid: Optional[int] = None, approx: bool = False,
+              packed_cache: Optional[PackedCorpus] = None,
               use_packed: Optional[bool] = None, prune_tiles: Optional[bool] = None):
     """RankAware search → (Q, k) scores in the metric's form, (Q, k) ids: the
     packed kernel for n ≥ 512 and k ≤ 128 (the JAX package's rule; prune on
@@ -360,7 +361,7 @@ def scan_topk(params, bits, layout, packing: str, queries, codes: torch.Tensor, 
         col = start + torch.arange(y_hat.shape[0], device=dev)
         return torch.where(col[None, :] < limit, s, torch.full_like(s, -np.inf))
 
-    scores, idx = _streaming_topk(score_tile, n, num_q, k, tile)
+    scores, idx = _streaming_topk(score_tile, n, num_q, k, tile, approx=approx)
     return _finalize(scores, idx, metric, q_sq)
 
 
@@ -439,12 +440,14 @@ class RankAware(BaseQuantizer):
         return q_map, window
 
     def scan_topk(self, queries, codes, k, metric, norms=None, tile_rows=16384,
-                  use_bf16=True, cache=None, num_valid=None, use_packed=None,
+                  use_bf16=True, approx=False, cache=None, num_valid=None, use_packed=None,
                   prune_tiles=None):
+        """The JAX package's parameters, in its order, but for ``interpret``
+        (Pallas interpret mode: a CPU tensor runs the plain twin here)."""
         return scan_topk(self.params, self.bits, self.layout, self.cfg.packing, queries, codes,
                          k, metric, norms=norms, tile_rows=tile_rows, use_bf16=use_bf16,
-                         num_valid=num_valid, packed_cache=cache, use_packed=use_packed,
-                         prune_tiles=prune_tiles)
+                         num_valid=num_valid, approx=approx, packed_cache=cache,
+                         use_packed=use_packed, prune_tiles=prune_tiles)
 
     def code_bytes_per_vector(self) -> float:
         if self.cfg.packing == "ffd":

@@ -13,9 +13,9 @@
           route (``prepare_packed`` → ``kernels/packed_scan.py``) scans
           tile-ordered words with the hand-written CUDA kernel on a card;
           ``use_packed=False`` or k > 128 takes the plain streaming scan.
-
-Not ported yet: the head-segment prune cascade (``prune_segments > 0``
-raises; it lost every measurement on the TPU and stays off).
+          ``prune_segments`` > 0 runs the head-segment cascade
+          (``scan_topk``, ``_saq_rerank``; off by default, as in the JAX
+          package, where it lost every TPU measurement).
 """
 
 from __future__ import annotations
@@ -53,6 +53,7 @@ from vq_tpu_torch.kernels.packed_scan import (
     pack_words,
     packed_scan_topk,
 )
+from vq_tpu_torch.kernels.topk import ordered_topk
 from vq_tpu_torch.methods.base import BaseQuantizer
 
 _ENCODE_CHUNK = 65536  # rows per encode step (bounds the CAQ temporaries)
@@ -567,26 +568,45 @@ def _packed_scan(plan, params, queries, packed: PackedCorpus, k, metric, seg_ids
                             tile_mask=tile_mask, mask_cap=mask_cap)
 
 
+def _dequant_cat(plan: SAQPlan, params: SAQParams, rows: torch.Tensor, seg_ids) -> torch.Tensor:
+    """Byte rows → (T, Σ ln) f32 dequantized values of the segments
+    ``seg_ids``, concatenated in code space."""
+    parts = _split_row(plan, rows)
+    return torch.cat([_seg_dequant(params, plan, s, unpack_bits(parts[s][0], plan.seg_bits[s],
+                                                                plan.seg_lens[s]), parts[s][1])
+                      for s in seg_ids], dim=1)
+
+
 def scan_topk(plan: SAQPlan, params: SAQParams, queries, codes: torch.Tensor, k: int,
               metric: Metric, norms=None, tile_rows: int = 16384, use_bf16: bool = True,
-              num_valid: Optional[int] = None, prune_segments: int = 0,
-              packed_cache: Optional[PackedCorpus] = None, use_packed: Optional[bool] = None,
-              prune_tiles: Optional[bool] = None):
+              num_valid: Optional[int] = None, approx: bool = False, prune_segments: int = 0,
+              rerank_factor: int = 10, packed_cache: Optional[PackedCorpus] = None,
+              use_packed: Optional[bool] = None, prune_tiles: Optional[bool] = None):
     """SAQ search → (Q, k) scores in the metric's form, (Q, k) ids.
 
     Packed route (n ≥ 512 and k ≤ 128 unless ``use_packed`` says): the
     packed kernel over ``packed_cache`` (or a layout built here), with the
     variance prune on when the cache's ``prune_hint`` says it can fire
     (``prune_tiles`` overrides); ids of a norm-ordered cache are mapped
-    back through ``perm``.  Otherwise the plain streaming scan."""
-    if prune_segments > 0:
-        raise ValueError("the head-segment prune cascade (prune_segments > 0) is not ported")
+    back through ``perm``.  Otherwise the plain streaming scan.
+
+    ``prune_segments`` = p > 0 (with p < the segment count and n > 2·
+    ``rerank_factor``·k) is the head-segment cascade: stage 1 scores every
+    row on the first p segments alone (the packed kernel over that segment
+    subset, when rerank_factor·k ≤ 128, else the dense packed scan runs;
+    the plain streaming scan on the plain route) and keeps k1 =
+    rerank_factor·k candidates, which ``_saq_rerank`` rescores exactly over
+    all segments.  It lost every measurement on the TPU and stays off by
+    default."""
     dev = codes.device
     n = codes.shape[0]
     num_q = queries.shape[0]
     use_bf16 = use_bf16 and bf16_supported(dev)
     queries = as_f32(queries, dev)
     q_sq = torch.sum(queries * queries, dim=-1)
+    cascade = 0 < prune_segments < plan.num_segments and n > 2 * rerank_factor * k
+    k1 = min(n, rerank_factor * k)
+    head = tuple(range(prune_segments))
     if use_packed is None:
         use_packed = n >= TILE and k <= 128
     if use_packed:
@@ -601,6 +621,15 @@ def scan_topk(plan: SAQPlan, params: SAQParams, queries, codes: torch.Tensor, k:
         if packed.perm is not None and num_valid is not None:
             raise ValueError("num_valid prefix masking is incompatible with a norm-ordered "
                              "(sort_rows) packed cache")
+        if cascade and rerank_factor * k <= 128:
+            # stage 1 in the kernel over the head segments, prune off: the
+            # tile stats bound the full reconstruction, not a subset's
+            s1, cand = _packed_scan(plan, params, queries, packed, k1, metric, seg_ids=head,
+                                    num_valid=num_valid, use_bf16=use_bf16)
+            if packed.perm is not None:
+                cand = packed.perm[cand.long()]
+            return _saq_rerank(plan, params, queries, codes, cand, torch.isfinite(s1), k,
+                               metric, norms=norms, q_sq=q_sq)
         prune = (prune_tiles if prune_tiles is not None
                  else packed.tile_stats is not None and packed.prune_hint)
         out = _packed_scan(plan, params, queries, packed, k, metric, num_valid=num_valid,
@@ -611,10 +640,6 @@ def scan_topk(plan: SAQPlan, params: SAQParams, queries, codes: torch.Tensor, k:
         return _finalize(outs, outi, metric, q_sq)
 
     tile = min(tile_rows, max(8, n))
-    q_cat, mean_cat, q_mean, mean_sq = _packed_query_side(
-        plan, params, queries, tuple(range(plan.num_segments)))
-    if use_bf16:
-        q_cat = round_bf16(q_cat)
     limit = n if num_valid is None else min(n, int(num_valid))
     norms_t = None
     if metric == Metric.NIP:
@@ -622,28 +647,65 @@ def scan_topk(plan: SAQPlan, params: SAQParams, queries, codes: torch.Tensor, k:
             raise ValueError("Metric.NIP requires original row norms")
         norms_t = as_f32(norms, dev)
 
-    def score_tile(start):
-        ct = codes[start: start + tile]
-        o_cat = torch.cat([
-            _seg_dequant(params, plan, s, unpack_bits(packed, plan.seg_bits[s],
-                                                      plan.seg_lens[s]), rescale)
-            for s, (packed, rescale, _nrm) in enumerate(_split_row(plan, ct))], dim=1)
-        ip = q_cat @ (round_bf16(o_cat) if use_bf16 else o_cat).T + q_mean[:, None]
-        if metric == Metric.L2:
-            # ‖x̂‖² = ‖mean‖² + 2·mean·r̂ + ‖r̂‖² (rotations orthogonal)
-            md = o_cat @ mean_cat
-            s_val = 2.0 * ip - (mean_sq + 2.0 * md[None, :]
-                                + torch.sum(o_cat * o_cat, dim=1)[None, :])
-        elif metric == Metric.IP:
-            s_val = ip
-        else:
-            nt = norms_t[start: start + ct.shape[0]]
-            s_val = ip / torch.clamp(nt, min=1e-30)[None, :]
-        col = start + torch.arange(ct.shape[0], device=dev)
-        return torch.where(col[None, :] < limit, s_val, torch.full_like(s_val, -np.inf))
+    def make_score_tile(seg_ids):
+        q_cat, mean_cat, q_mean, mean_sq = _packed_query_side(plan, params, queries, seg_ids)
+        if use_bf16:
+            q_cat = round_bf16(q_cat)
 
-    scores, idx = _streaming_topk(score_tile, n, num_q, k, tile)
-    return _finalize(scores, idx, metric, q_sq)
+        def score_tile(start):
+            ct = codes[start: start + tile]
+            o_cat = _dequant_cat(plan, params, ct, seg_ids)
+            ip = q_cat @ (round_bf16(o_cat) if use_bf16 else o_cat).T + q_mean[:, None]
+            if metric == Metric.L2:
+                # ‖x̂‖² = ‖mean‖² + 2·mean·r̂ + ‖r̂‖² (rotations orthogonal)
+                md = o_cat @ mean_cat
+                s_val = 2.0 * ip - (mean_sq + 2.0 * md[None, :]
+                                    + torch.sum(o_cat * o_cat, dim=1)[None, :])
+            elif metric == Metric.IP:
+                s_val = ip
+            else:
+                nt = norms_t[start: start + ct.shape[0]]
+                s_val = ip / torch.clamp(nt, min=1e-30)[None, :]
+            col = start + torch.arange(ct.shape[0], device=dev)
+            return torch.where(col[None, :] < limit, s_val, torch.full_like(s_val, -np.inf))
+
+        return score_tile
+
+    if not cascade:
+        scores, idx = _streaming_topk(make_score_tile(tuple(range(plan.num_segments))), n,
+                                      num_q, k, tile, approx=approx)
+        return _finalize(scores, idx, metric, q_sq)
+    s1, cand = _streaming_topk(make_score_tile(head), n, num_q, k1, tile, approx=True)
+    return _saq_rerank(plan, params, queries, codes, cand, torch.isfinite(s1), k, metric,
+                       norms=norms, q_sq=q_sq)
+
+
+def _saq_rerank(plan: SAQPlan, params: SAQParams, queries: torch.Tensor, codes: torch.Tensor,
+                cand: torch.Tensor, alive: torch.Tensor, k: int, metric: Metric, norms=None,
+                q_sq=None):
+    """Stage 2 of the head-segment cascade: gather the (Q, k1) candidate
+    rows ``cand`` (corpus row ids), rescore them exactly over all segments
+    in f32 (whatever ``use_bf16`` said for stage 1), set the rows ``alive``
+    masks out (stage 1's −inf) to −inf and keep the top-k.  Ties rank by
+    candidate position, as the JAX package's ``lax.top_k`` over the
+    candidates does."""
+    num_q, k1 = cand.shape
+    q_cat, mean_cat, q_mean, mean_sq = _packed_query_side(
+        plan, params, queries, tuple(range(plan.num_segments)))
+    o_cat = _dequant_cat(plan, params, codes[cand.reshape(-1).long()],
+                         range(plan.num_segments)).reshape(num_q, k1, -1)
+    ip = torch.einsum("ql,qkl->qk", q_cat, o_cat) + q_mean[:, None]
+    if metric == Metric.L2:
+        s_val = 2.0 * ip - (mean_sq + 2.0 * (o_cat @ mean_cat) + torch.sum(o_cat * o_cat, dim=-1))
+    elif metric == Metric.IP:
+        s_val = ip
+    else:
+        if norms is None:
+            raise ValueError("Metric.NIP requires original row norms")
+        s_val = ip / torch.clamp(as_f32(norms, codes.device)[cand.long()], min=1e-30)
+    s_val = torch.where(alive, s_val, torch.full_like(s_val, -np.inf))
+    ts, ti = ordered_topk(s_val, min(k, k1))  # ids = candidate positions
+    return _finalize(ts, torch.gather(cand, 1, ti.long()), metric, q_sq)
 
 
 class SAQ(BaseQuantizer):
@@ -676,11 +738,12 @@ class SAQ(BaseQuantizer):
         return lambda x: encode(plan, params, x, rounds)
 
     def scan_topk(self, queries, codes, k, metric, norms=None, tile_rows=16384,
-                  use_bf16=True, cache=None, num_valid=None, prune_segments=0,
-                  prune_tiles=None):
+                  use_bf16=True, approx=False, prune_segments=0, rerank_factor=10, cache=None,
+                  num_valid=None, prune_tiles=None):
         return scan_topk(self.plan, self.params, queries, codes, k, metric, norms=norms,
                          tile_rows=tile_rows, use_bf16=use_bf16, num_valid=num_valid,
-                         prune_segments=prune_segments, packed_cache=cache,
+                         approx=approx, prune_segments=prune_segments,
+                         rerank_factor=rerank_factor, packed_cache=cache,
                          prune_tiles=prune_tiles)
 
     def prepare_scan(self, codes, norms=None, num_queries=8):
@@ -726,10 +789,7 @@ class SAQ(BaseQuantizer):
             return q_cat, q_mean
 
         def window(ct):
-            o = torch.cat([
-                _seg_dequant(params, plan, s, unpack_bits(packed, plan.seg_bits[s],
-                                                          plan.seg_lens[s]), rescale)
-                for s, (packed, rescale, _nrm) in enumerate(_split_row(plan, ct))], dim=1)
+            o = _dequant_cat(plan, params, ct, seg_ids)
             return o, mean_sq + 2.0 * (o @ mean_cat) + torch.sum(o * o, dim=1)
 
         return q_map, window
