@@ -148,6 +148,23 @@ Phases (any failure exits non-zero; nothing is caught):
    ``approx=True`` = ``approx=False`` bit for bit on the PQ M=16 flat index
    at k=256, a sharded PQ index, SQ 8 bits and the IVF-packed index.
 
+16. The multi-process mesh, run last (after 14), in processes of its own
+   (``torch.multiprocessing``, spawn; joined within ``RANKS_TIMEOUT_S``,
+   then killed, and any rank's non-zero exit fails the script), on phases
+   4, 7 and 10's fits (``save`` → ``load``) and corpora (remade from their
+   seeds in each process): ShardedFlatPQIndex(PQ M=16) at N=1,000,000,
+   D=1536, Q=1024, k = 10, 100, 256; ShardedPackedFlatIndex(SAQ bpd=2) at
+   N=1,048,576, D=1024, Q=256, k = 10, 100; ShardedIvfPackedIndex(SAQ) on
+   phase 10's corpus and coarse pass, nprobe 50, Q=256, k=100; dp_lloyd_step
+   twice.  Each index is built by ``fit`` on a 4-shard mesh of one process
+   (the witness), then (a) in 2 gloo ranks on the card, 2 shards each, and
+   (b) in one NCCL rank a card (``env://`` on 127.0.0.1; on one card one
+   rank of 4 shards), PQ and SAQ:
+   every rank's ids, scores, centroids and footprints = the witness's bit
+   for bit, its launches a search its shards' share of the witness's, its
+   merges gone through ``torch.distributed``; each search's ms per rank
+   beside the witness's, and the merge's (``_fold``) at Q=1024.
+
 Phases 6 and 9 hold a fifth configuration, RankAware bpd=2 (one segment
 per bit width, "perdim" and "values", no per-row scale: scale_col −1), and
 phase 6 its FFD packing once.
@@ -155,7 +172,8 @@ phase 6 its FFD packing once.
 The line before the last is a JSON object of the kernels: launches of
 phase 14's CLI steps (which run all four kernels), with each path's
 own count beside them (``launches_by_path``: each path's counters read
-just after it, phase 15's among them); errors from phases 3, 6, 9, 14
+just after it, phase 15's among them, and phase 16's ranks' summed over
+the ranks); errors from phases 3, 6, 9, 14
 and 15, times from 3, 6 and 9; each kernel's bound, the least time the card could take for the timed
 call.  A
 ``[launches] by path`` line before it holds the same counts by path;
@@ -169,8 +187,10 @@ import contextlib
 import dataclasses
 import json
 import os
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -333,6 +353,14 @@ def planted_corpus(torch, n, d, nq, seed, dev, rank=32, csize=10, spread=0.5):
     from vq_tpu_torch.data.datasets import planted_arrays
 
     return planted_arrays(n, d, nq, rank, csize, spread, seed, dev)
+
+
+def remake(torch, maker, dev):
+    """A corpus (x, q) from a context's ``maker``: the name of its function
+    here and the arguments before the device (phases 13, 15 and 16 remake
+    phases 4, 7 and 10's corpora from their seeds)."""
+    name, args = maker
+    return globals()[name](torch, *args, dev=dev)[:2]
 
 
 def random_codebooks(torch, x, m, kk, seed):
@@ -696,9 +724,8 @@ def phase_main(torch, dev, n=1_000_000, d=1536, nq=1024, profile=True):
             f"pq_score_all over all rows {t_score:.3f} ms")
     del x, q
     torch.cuda.empty_cache()
-    # phase 13 remakes the corpus from its seed and reuses the fit and index
-    return launches, dict(corpus=lambda: powerlaw_corpus(torch, n, d, nq, seed=0, dev=dev),
-                          pq=pq, index=index, gt=gt)
+    # phases 13 and 16 remake the corpus from its seed and reuse the fit
+    return launches, dict(maker=("powerlaw_corpus", (n, d, nq, 0)), pq=pq, index=index, gt=gt)
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1131,9 +1158,8 @@ def phase_saq_main(torch, dev, n=1_048_576, d=1024, nq=256, profile=True):
     if profile:
         profile_search(torch, index, q, ks=(10,), tag=" SAQ")
     gather_table(torch, dev, saq, index.codes, index.norms, q)
-    # phase 13 remakes the corpus from its seed and reuses the fit and index
-    ctx = dict(corpus=lambda: packed_corpus(torch, n, d, nq, 0, dev)[:2], saq=saq, index=index,
-               gt=gt)
+    # phases 13 and 16 remake the corpus from its seed and reuse the fit
+    ctx = dict(maker=("packed_corpus", (n, d, nq, 0)), saq=saq, index=index, gt=gt)
     del x, q, cache, gt_i
     torch.cuda.empty_cache()
 
@@ -1502,6 +1528,7 @@ def phase_ivf_main(torch, dev, n=1_048_576, d=1536, nq=256, k_cl=4096, nprobes=(
     del rindex
     torch.cuda.empty_cache()
     return launches["packed_scan_topk_gather"], dict(x=x, q=q, gt=gt, cents=cents, asn=asn,
+                                                     maker=("fullrank_corpus", (n, d, nq, 11)),
                                                      kmc=kmc, saq=saq, index=index)
 
 
@@ -2049,12 +2076,12 @@ def phase_sharded(torch, dev, ctx4, ctx7, ctx10, shards=4, nprobe=50, profile=Tr
     mesh = make_mesh(devices=[dev] * shards)
     log(f"[phase 13] mesh of {shards} shards on {dev} (one process; devices may repeat)")
     path = dict.fromkeys(KERNELS, 0)
-    x, q = ctx4["corpus"]()
+    x, q = remake(torch, ctx4["maker"], dev)
     spq = sharded_pq(torch, mesh, x, q, ctx4, f"P={shards}", path, profile)
     sharded_pq(torch, make_mesh(devices=[dev] * 3), x, q, ctx4, "P=3 (ragged)", path, False)
     del x
     torch.cuda.empty_cache()
-    x7, q7 = ctx7["corpus"]()
+    x7, q7 = remake(torch, ctx7["maker"], dev)
     ssaq = sharded_saq(torch, mesh, x7, q7, ctx7, f"P={shards}", path, profile)
     del x7
 
@@ -2141,11 +2168,11 @@ def phase_sharded(torch, dev, ctx4, ctx7, ctx10, shards=4, nprobe=50, profile=Tr
 
     if torch.cuda.device_count() > 1:
         cards, per_card = make_mesh(), dict.fromkeys(KERNELS, 0)
-        x, q = ctx4["corpus"]()
+        x, q = remake(torch, ctx4["maker"], dev)
         sharded_pq(torch, cards, x, q, ctx4, f"one shard per card (P={cards.size})", per_card,
                    False)
         del x
-        x7, q7 = ctx7["corpus"]()
+        x7, q7 = remake(torch, ctx7["maker"], dev)
         sharded_saq(torch, cards, x7, q7, ctx7, f"one shard per card (P={cards.size})",
                     per_card, False)
         del x7
@@ -2241,7 +2268,7 @@ def cascade(torch, dev, results, ctx, heads, rfs, path, profile, k=10):
     from vq_tpu_torch.methods import saq as sq
 
     saq, index, gt = ctx["saq"], ctx["index"], ctx["gt"]
-    x, q = ctx["corpus"]()
+    x, q = remake(torch, ctx["maker"], dev)
     del x
     codes, norms, cache, nq = index.codes, index.norms, index._scan_cache, q.shape[0]
     plan, params = saq.plan, saq.params
@@ -2503,14 +2530,14 @@ def approx_searches(torch, dev, ctx4, ctx7, ctx10, path, shards=4):
         return f"{what} k={k} Q={q.shape[0]}"
 
     done = []
-    x, q = ctx4["corpus"]()
+    x, q = remake(torch, ctx4["maker"], dev)
     done.append(same(ctx4["index"], q, 256, "PQ M=16 flat"))
     sidx = ShardedFlatPQIndex(ctx4["pq"], SearchConfig(use_bf16=True),
                               make_mesh(devices=[dev] * shards)).fit(x)
     done.append(same(sidx, q, 10, f"sharded PQ M=16 P={shards}"))
     del x, sidx
     torch.cuda.empty_cache()
-    x7, q7 = ctx7["corpus"]()
+    x7, q7 = remake(torch, ctx7["maker"], dev)
     sq8 = FlatQuantizedIndex(SQ(SQConfig(8)), SearchConfig(use_bf16=True)).fit(x7)
     del x7
     done.append(same(sq8, q7, 10, "SQ 8 bits flat (generic scan)"))
@@ -2879,7 +2906,6 @@ def phase_harness(torch, dev, results=None, n=1_000_000, d=1536, nq=1024, n_gate
     vq_tpu_torch`` in a subprocess.  Returns the launches of the CLI
     steps, by kernel."""
     import shutil
-    import tempfile
 
     from vq_tpu_torch.cli import main as cli
     from vq_tpu_torch.data.datasets import planted_arrays
@@ -2992,6 +3018,245 @@ def phase_harness(torch, dev, results=None, n=1_000_000, d=1536, nq=1024, n_gate
     return path
 
 
+# ---------------------------------------------------------------- phase 16
+RANKS_TIMEOUT_S = 240.0  # a spawned group's waits, and the join of its ranks
+
+
+def ranks_spec(torch, tmp, ctx4, ctx7, ctx10, nprobe=50) -> dict:
+    """What phase 16 rebuilds in each of its processes: phases 4, 7 and 10's
+    fits saved to ``tmp`` (the quantizers by ``save``, the coarse pass by
+    ``torch.save``), their configurations and each corpus's maker."""
+    ctx4["pq"].save(os.path.join(tmp, "pq.pkl"))
+    ctx7["saq"].save(os.path.join(tmp, "saq7.pkl"))
+    ctx10["saq"].save(os.path.join(tmp, "saq10.pkl"))
+    torch.save({"cents": ctx10["cents"].cpu(), "asn": ctx10["asn"].cpu()},
+               os.path.join(tmp, "coarse.pt"))
+    ivf = ctx10["index"]
+    # the ranks split host work over as many threads as this process, so
+    # their CPU sums split alike
+    return dict(tmp=tmp, device=str(ctx10["cents"].device), threads=torch.get_num_threads(),
+                pq=(ctx4["pq"].cfg, ctx4["maker"], ctx4["index"].search_cfg),
+                saq=(ctx7["saq"].cfg, ctx7["maker"], ctx7["index"].search_cfg),
+                ivf=(ctx10["saq"].cfg, ctx10["maker"],
+                     dataclasses.replace(ivf.ivf_cfg, nprobe=nprobe), ivf.search_cfg))
+
+
+def ranks_program(torch, dev, spec, mesh, parts) -> dict:
+    """Phase 16's work on ``mesh``, the same in the parent (one process) and
+    in each rank: the parent's fits loaded, each index built by ``fit`` on
+    its corpus remade from its seed, then searched.  Returns the results
+    ({search: (ids, scores)}, and two dp_lloyd_step runs) and, by search,
+    the launches of one search, its ms (median of 3, host clock, after the
+    counted one), each index's footprint and the merge's ms (``_fold``:
+    the all-gather and the ordered top-k, median of 5)."""
+    from vq_tpu_torch.dist import ShardedFlatPQIndex, ShardedIvfPackedIndex
+    from vq_tpu_torch.dist import ShardedPackedFlatIndex
+    from vq_tpu_torch.dist.sharded import _fold, dp_lloyd_step
+    from vq_tpu_torch.index.ivf import coarse_sample
+    from vq_tpu_torch.methods.pq import PQ
+    from vq_tpu_torch.methods.saq import SAQ
+
+    tmp = spec["tmp"]
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    out = dict(results={}, launches={}, ms={}, footprint={}, merge_ms={})
+
+    def host_ms(fn, reps=3):
+        times = []
+        for _ in range(reps):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    def searches(name, index, q, ks):
+        out["footprint"][name] = index.memory_footprint()
+        for k in ks:
+            what = f"{name} k={k}"
+            with counting({}) as got:
+                out["results"][what] = index.search_with_scores(q, k)
+            out["launches"][what] = got
+            out["ms"][what] = host_ms(lambda: index.search_with_scores(q, k))
+
+    if "pq" in parts:
+        cfg, maker, search_cfg = spec["pq"]
+        x, q = remake(torch, maker, dev)
+        pq = PQ(cfg, device=dev).load(os.path.join(tmp, "pq.pkl"))
+        searches("PQ M=16", ShardedFlatPQIndex(pq, search_cfg, mesh).fit(x), q, (10, 100, 256))
+        for k in (10, 100):
+            blocks = mesh.each(lambda p, k=k: (
+                torch.randn((q.shape[0], k), device=dev),
+                torch.randint(0, 1 << 20, (q.shape[0], k), device=dev, dtype=torch.int32)))
+            _fold(mesh, None, blocks, k)
+            out["merge_ms"][f"Q={q.shape[0]} k={k}"] = host_ms(
+                lambda: _fold(mesh, None, blocks, k), reps=5)
+        del x
+    if "saq" in parts:
+        cfg, maker, search_cfg = spec["saq"]
+        x, q = remake(torch, maker, dev)
+        saq = SAQ(cfg, device=dev).load(os.path.join(tmp, "saq7.pkl"))
+        searches("SAQ bpd=2", ShardedPackedFlatIndex(saq, search_cfg, mesh).fit(x), q, (10, 100))
+        del x
+    if "ivf" in parts:
+        cfg, maker, ivf_cfg, search_cfg = spec["ivf"]
+        x, q = remake(torch, maker, dev)
+        saq = SAQ(cfg, device=dev).load(os.path.join(tmp, "saq10.pkl"))
+        coarse = torch.load(os.path.join(tmp, "coarse.pt"))
+        cents, asn = coarse["cents"].to(dev), coarse["asn"].to(dev)
+        index = ShardedIvfPackedIndex(saq, ivf_cfg, search_cfg, mesh).fit(x, coarse=(cents, asn))
+        searches(f"IVF-packed SAQ nprobe={ivf_cfg.nprobe}", index, q, (100,))
+        del index
+        xs = coarse_sample(x, ivf_cfg.kmeans, cents.shape[0], dev)  # the coarse pass's rows
+        xs = xs[: xs.shape[0] // mesh.size * mesh.size]
+        out["results"]["dp_lloyd_step"] = tuple(dp_lloyd_step(mesh, xs, cents).cpu().numpy()
+                                                for _ in range(2))
+        del x, xs
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def ranks_main(rank: int, world: int, spec: dict, backend: str, env: dict) -> None:
+    """A spawned rank of phase 16: joins its group through
+    ``maybe_init_distributed`` (gloo: a file rendezvous in the phase's
+    directory; NCCL: ``env://`` from ``env``, card ``cuda:<rank>``), runs
+    ``ranks_program`` on a mesh of its ``shards_per_rank`` shards on its
+    device and saves what it returned, with the backend, the exchanges the
+    mesh's collectives made through torch.distributed and the rank's
+    shards."""
+    import torch
+
+    from vq_tpu_torch.dist import make_mesh, maybe_init_distributed
+
+    os.environ.update(env, LOCAL_RANK=str(rank))  # VQ_DIST_INIT=1, the NCCL rendezvous
+    torch.set_num_threads(spec["threads"])
+    # gloo ranks share the card; NCCL refuses that, so an NCCL rank has its own
+    dev = torch.device("cuda", rank) if backend == "nccl" else torch.device(spec["device"])
+    maybe_init_distributed(backend, device=dev, rank=rank, world_size=world,
+                           init_method=None if backend == "nccl" else
+                           f"file://{spec['tmp']}/rendezvous-{backend}",
+                           timeout_s=RANKS_TIMEOUT_S)
+    mesh = make_mesh(devices=[dev] * spec["shards_per_rank"])
+    out = ranks_program(torch, dev, spec, mesh, spec["parts"])
+    out.update(backend=mesh.ranks.backend, exchanges=mesh.ranks.exchanges,
+               local=mesh.local_shards)
+    torch.save(out, os.path.join(spec["tmp"], f"{backend}-rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def spawn_ranks(torch, spec, world, backend, env) -> list:
+    """``world`` ranks of ``ranks_main``, started by ``spawn`` and joined
+    within RANKS_TIMEOUT_S; a rank still running then is killed, and the
+    phase fails unless every rank ended with 0.  Returns what each saved."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=ranks_main, args=(r, world, spec, backend, env))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + RANKS_TIMEOUT_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for r in hung:
+        procs[r].kill()
+        procs[r].join()
+    require(not hung, f"phase 16 {backend} ranks {hung} still ran after {RANKS_TIMEOUT_S} s "
+                      "(killed)")
+    codes = [p.exitcode for p in procs]
+    require(codes == [0] * world, f"phase 16 {backend} ranks' exit codes {codes}")
+    return [torch.load(os.path.join(spec["tmp"], f"{backend}-rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def hold_ranks(one, ranks, shards, backend) -> dict:
+    """Each rank's results against the one-process mesh's bit for bit, its
+    footprints equal, its launches a search its share of the one-process
+    search's (local shards of ``shards``), its collectives gone through
+    torch.distributed; logs each search's ms beside the one-process mesh's.
+    Returns the ranks' launches summed, by kernel."""
+    total = dict.fromkeys(KERNELS, 0)
+    for r, got in enumerate(ranks):
+        tag = f"{backend} rank {r} of {len(ranks)} ({len(got['local'])} of {shards} shards)"
+        require(got["backend"] == backend and got["exchanges"] > 0,
+                f"{tag}: {got['exchanges']} exchanges through {got['backend']}")
+        for what, want in one["results"].items():
+            if what in got["results"]:
+                res = got["results"][what]
+                require(len(res) == len(want) and all(
+                    a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(res, want)),
+                    f"{tag}: {what} differs from the one-process mesh's")
+        for name, nbytes in got["footprint"].items():
+            require(nbytes == one["footprint"][name],
+                    f"{tag}: {name} footprint {nbytes} != {one['footprint'][name]}")
+        for what, counts in got["launches"].items():
+            for kernel, n in counts.items():
+                require_launches(n * shards, one["launches"][what][kernel] * len(got["local"]),
+                                 f"{tag} {what} {kernel} (× {shards} shards / local shards)")
+                total[kernel] += n
+            log(f"[phase 16] {tag} {what}: {got['ms'][what]:.3f} ms/search (one process, "
+                f"{shards} shards: {one['ms'][what]:.3f}); launches "
+                f"{ {kernel: n for kernel, n in counts.items() if n} }")
+        for what, ms in got["merge_ms"].items():
+            log(f"[phase 16] {tag} merge (_fold) {what}: {ms:.3f} ms (one process: "
+                f"{one['merge_ms'][what]:.3f}; host clock, median of 5)")
+    return total
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_ranks(torch, dev, spec, shards=4, world=2) -> dict:
+    """Phase 16 (module docstring) → the launches of the gloo ranks' and of
+    the NCCL rank's searches, by path.  Runs last: the parent never joins a
+    process group."""
+    from vq_tpu_torch.dist import make_mesh
+
+    t0 = time.perf_counter()
+    one = ranks_program(torch, dev, spec, make_mesh(devices=[dev] * shards),
+                        ("pq", "saq", "ivf"))
+    want = {"PQ M=16 k=10": "pq_scan_topk_fused", "PQ M=16 k=100": "pq_scan_topk_fused",
+            "PQ M=16 k=256": "pq_score_all", "SAQ bpd=2 k=10": "packed_scan_topk",
+            "SAQ bpd=2 k=100": "packed_scan_topk"}
+    want.update({what: "packed_scan_topk_gather" for what in one["launches"]
+                 if what.startswith("IVF")})
+    for what, kernel in want.items():
+        require_launched({kernel: one["launches"][what][kernel]}, f"phase 16 one process {what}")
+    lloyd = one["results"]["dp_lloyd_step"]
+    require(np.array_equal(*lloyd), "phase 16: two dp_lloyd_step runs differ")
+    log(f"[phase 16] one process, {shards} shards on {dev}: {sorted(one['results'])} "
+        f"({time.perf_counter() - t0:.3f} s)")
+    paths = {}
+    t1 = time.perf_counter()
+    gloo = spawn_ranks(torch, {**spec, "shards_per_rank": shards // world,
+                               "parts": ("pq", "saq", "ivf")}, world, "gloo",
+                       {"VQ_DIST_INIT": "1"})
+    paths["phase 16 gloo ranks"] = hold_ranks(one, gloo, shards, "gloo")
+    log(f"[phase 16] {world} gloo ranks on {dev}, {shards // world} shards each: ids, scores, "
+        f"Lloyd centroids and footprints = the one-process mesh's bit for bit "
+        f"({time.perf_counter() - t1:.3f} s)")
+    if dev.type == "cuda":  # NCCL has no CPU route
+        # one NCCL rank a card, as many as divide the shards (1 on one card)
+        cards = torch.cuda.device_count()
+        nranks = max(w for w in range(1, min(cards, shards) + 1) if shards % w == 0)
+        t1 = time.perf_counter()
+        nccl = spawn_ranks(torch, {**spec, "shards_per_rank": shards // nranks,
+                                   "parts": ("pq", "saq")}, nranks, "nccl",
+                           {"VQ_DIST_INIT": "1", "MASTER_ADDR": "127.0.0.1",
+                            "MASTER_PORT": str(free_port()), "LOCAL_WORLD_SIZE": str(nranks)})
+        paths["phase 16 NCCL ranks"] = hold_ranks(one, nccl, shards, "nccl")
+        log(f"[phase 16] {nranks} NCCL rank(s) (env:// on 127.0.0.1), one a card, "
+            f"{shards // nranks} shards each: = the one-process mesh bit for bit "
+            f"({time.perf_counter() - t1:.3f} s)")
+    log(f"[phase 16] launches of the ranks' searches: {paths}; phase 16 "
+        f"{time.perf_counter() - t0:.3f} s")
+    require_launched(paths["phase 16 gloo ranks"], "a kernel never launched in the gloo ranks")
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -3055,9 +3320,13 @@ def main() -> int:
     # phase 15 runs here, while phases 4, 7 and 10's indexes are alive
     paths["phase 15 search options"] = phase_search_options(torch, dev, results, pq_ctx,
                                                             saq_ctx, ivf_ctx)
-    del pq_ctx, saq_ctx, ivf_ctx
-    torch.cuda.empty_cache()
-    paths["phase 14 harness CLI"] = phase_harness(torch, dev, results)
+    with tempfile.TemporaryDirectory(prefix="vq_ranks_") as ranks_dir:
+        spec = ranks_spec(torch, ranks_dir, pq_ctx, saq_ctx, ivf_ctx)
+        del pq_ctx, saq_ctx, ivf_ctx
+        torch.cuda.empty_cache()
+        paths["phase 14 harness CLI"] = phase_harness(torch, dev, results)
+        # phase 16, last: its ranks are processes of their own
+        paths.update(phase_ranks(torch, dev, spec))
     log(f"[launches] by path: {json.dumps(paths)}")
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "vq_tpu"))
     require(not leaked, f"JAX or JAX-package modules were imported: {leaked[:5]}")

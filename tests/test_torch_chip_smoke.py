@@ -59,7 +59,8 @@ def test_phase_main_and_gate_rehearsal(cpu_smoke):
     # profile=False: torch.profiler records no device time on the CPU
     launches, ctx = cs.phase_main(torch, cpu_smoke, n=1500, d=32, nq=8, profile=False)
     assert set(launches) == {"pq_scan_topk_fused", "pq_score_all"}
-    assert torch.equal(ctx["corpus"]()[0], ctx["corpus"]()[0])  # phase 13 remakes it
+    x = cs.remake(torch, ctx["maker"], cpu_smoke)[0]  # phases 13 and 16 remake it
+    assert x.shape == (1500, 32) and torch.equal(x, cs.remake(torch, ctx["maker"], cpu_smoke)[0])
     cs.phase_gate(torch, cpu_smoke, n=400, d=192, nq=8)
 
 
@@ -134,6 +135,47 @@ def test_phase_sharded_rehearsal(cpu_smoke, monkeypatch):
                                 profile=False)
     assert launches == {"pq_scan_topk_fused": 0, "pq_score_all": 0, "packed_scan_topk": 0,
                         "packed_scan_topk_gather": 0}
+
+
+def test_phase_ranks_rehearsal(cpu_smoke, monkeypatch, tmp_path):
+    """Phase 16 on phases 4, 7 and 10 run at tiny sizes (as in phase 13's
+    rehearsal): the one-process mesh of 4 CPU shards, then 2 spawned gloo
+    ranks of 2 shards each, held to it bit for bit (the NCCL rank needs
+    the card)."""
+    monkeypatch.setattr(cs, "profile_search", lambda *a, **k: None)
+    _, pq_ctx = cs.phase_main(torch, cpu_smoke, n=2002, d=32, nq=8, profile=False)
+    _, saq_ctx = cs.phase_saq_main(torch, cpu_smoke, n=4000, d=128, nq=8, profile=False)
+    _, ivf_ctx = cs.phase_ivf_main(torch, cpu_smoke, n=6000, d=64, nq=16, k_cl=32,
+                                   nprobes=(8,), nq_small=4, profile=False)
+    spec = cs.ranks_spec(torch, str(tmp_path), pq_ctx, saq_ctx, ivf_ctx, nprobe=8)
+    assert cs.phase_ranks(torch, cpu_smoke, spec) == {
+        "phase 16 gloo ranks": dict.fromkeys(cs.KERNELS, 0)}
+
+
+def test_phase_ranks_runs_last_joins_with_a_timeout_and_catches_nothing():
+    """Phase 16 is the last phase main() calls, after phase 14; its ranks'
+    group and their join are bounded by RANKS_TIMEOUT_S, a rank still
+    running then is killed, and no function of the phase catches an
+    exception."""
+    import ast
+    import inspect
+    import textwrap
+
+    def calls(fn):
+        tree = ast.parse(textwrap.dedent(inspect.getsource(fn)))
+        return [n.func.id for n in ast.walk(tree)
+                if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)]
+
+    phases = [name for name in calls(cs.main) if name.startswith("phase_")]
+    assert phases[-2:] == ["phase_harness", "phase_ranks"]
+    assert "spawn_ranks" in calls(cs.phase_ranks) and "ranks_main" not in calls(cs.main)
+    spawn = inspect.getsource(cs.spawn_ranks)
+    assert "RANKS_TIMEOUT_S" in spawn and ".kill()" in spawn and "is_alive()" in spawn
+    assert "timeout_s=RANKS_TIMEOUT_S" in inspect.getsource(cs.ranks_main)
+    for fn in (cs.remake, cs.ranks_spec, cs.ranks_program, cs.ranks_main, cs.spawn_ranks,
+               cs.hold_ranks, cs.phase_ranks):
+        tree = ast.parse(textwrap.dedent(inspect.getsource(fn)))
+        assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), fn.__name__
 
 
 def test_phase_quantizers_rehearsal(cpu_smoke):

@@ -27,7 +27,9 @@ def _check(ok, what: str) -> None:
 def dryrun_multichip(n_devices: int, device: Optional[str] = None) -> None:
     """Run the eight steps on ``make_mesh(devices=[device] * n_devices)``, or
     with ``device=None`` on one shard per visible card (n_devices of them:
-    fewer raises); prints ``dryrun_multichip(n): ok``."""
+    fewer raises); prints ``dryrun_multichip(n): ok``.  Under a process
+    group each rank lists its own devices, so the mesh holds every rank's
+    shards, and every rank checks the merged results on its root."""
     from vq_tpu_torch.core.config import (
         IVFConfig,
         KMeansConfig,
@@ -47,33 +49,33 @@ def dryrun_multichip(n_devices: int, device: Optional[str] = None) -> None:
 
     mesh = (make_mesh(n_devices) if device is None
             else make_mesh(devices=[device] * n_devices))
-    root = mesh.root
+    root, p_cnt = mesh.root, mesh.size  # under a process group: every rank's shards
     rng = np.random.default_rng(0)
-    n, d, m, kcb = 16 * n_devices + 3, 32, 4, 16  # ragged n exercises pad masking
+    n, d, m, kcb = 16 * p_cnt + 3, 32, 4, 16  # ragged n exercises pad masking
     x = rng.standard_normal((n, d)).astype(np.float32)
     q = rng.standard_normal((8, d)).astype(np.float32)
     codes = rng.integers(0, kcb, (n, m)).astype(np.uint8)
     codebooks = rng.standard_normal((m, kcb, d // m)).astype(np.float32)
 
     # 1. training step: a data-parallel Lloyd iteration (psum over the mesh)
-    c1 = dp_lloyd_step(mesh, shard_rows(mesh, pad_rows_to_multiple(x, n_devices)),
+    c1 = dp_lloyd_step(mesh, shard_rows(mesh, pad_rows_to_multiple(x, p_cnt)),
                        replicate(mesh, x[:8]))
     _check(c1.shape == (8, d) and bool(torch.isfinite(c1).all()), "finite (8, d) centroids")
 
     # 2. search step: the corpus-sharded ADC scan + cross-shard top-k merge
     qs, cbs = replicate(mesh, q), replicate(mesh, codebooks)
-    _, i = sharded_scan_topk(mesh, qs, shard_rows(mesh, pad_rows_to_multiple(codes, n_devices)),
+    _, i = sharded_scan_topk(mesh, qs, shard_rows(mesh, pad_rows_to_multiple(codes, p_cnt)),
                              cbs, k=5, metric=Metric.L2, true_n=n, tile_rows=64)
     _check(bool((i < n).all()), "PQ scan ids < n")
 
     # 3. the sharded exact scan (ground truth)
-    _, i2 = sharded_exact_topk(mesh, qs, shard_rows(mesh, pad_rows_to_multiple(x, n_devices)),
+    _, i2 = sharded_exact_topk(mesh, qs, shard_rows(mesh, pad_rows_to_multiple(x, p_cnt)),
                                k=5, metric=Metric.L2, true_n=n)
     _check(bool((i2 < n).all()), "exact scan ids < n")
 
     # 4. the overlapped merge: each shard in 4 chunks, merged chunk by chunk
     _, i3 = sharded_scan_topk(mesh, qs,
-                              shard_rows(mesh, pad_rows_to_multiple(codes, n_devices * 4)),
+                              shard_rows(mesh, pad_rows_to_multiple(codes, p_cnt * 4)),
                               cbs, k=5, metric=Metric.L2, true_n=n, tile_rows=64,
                               overlap_chunks=4)
     _check(torch.equal(i3, i), "overlap_chunks=4 = 1")
@@ -92,7 +94,7 @@ def dryrun_multichip(n_devices: int, device: Optional[str] = None) -> None:
     _check(ids_g.shape == (8, 5) and bool((ids_g < n).all()), "sharded flat ids")
 
     # 7. the packed kernel per shard (local norm order, overlapped merge)
-    nb = 1024 * n_devices + 3  # ≥ 2 tiles a shard, so overlap chunks split
+    nb = 1024 * p_cnt + 3  # ≥ 2 tiles a shard, so overlap chunks split
     xb = (rng.standard_normal((nb, d)) * np.exp(0.5 * rng.standard_normal((nb, 1)))
           ).astype(np.float32)
     pk = ShardedPackedFlatIndex(SAQ(SAQConfig(bits_per_dim=2.0, use_pca=True), device=root),

@@ -6,7 +6,10 @@ codebooks and queries are replicated, each shard runs the same scan (the
 port's kernels on a card) over its rows under its own device, and the
 per-shard top-k candidates merge exactly at the root: an all-gather and a
 final top-k (k candidates a shard ⊇ the global top-k).  Lloyd sums are
-summed over the shards (``mesh.psum``).
+summed over the shards (``mesh.psum``).  Under a process group each rank
+scans its own shards and every rank makes the same collective calls in
+the same order (a call one rank skipped would leave the others waiting),
+so every rank gets the merged result.
 
 Merges keep the port's result contract: maximize-form scores, ordered by
 score descending then id ascending (``kernels/topk.ordered_topk``), empty
@@ -24,15 +27,16 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 
 from vq_tpu_torch.core.config import Metric
-from vq_tpu_torch.dist.mesh import Mesh, all_gather, on, psum, replicate, shard_rows
+from vq_tpu_torch.dist.mesh import Mesh, all_gather, on, psum, replicate, shard_rows, unzip
 from vq_tpu_torch.kernels.adc import exact_topk, scan_codes_topk, scan_generic_topk
 from vq_tpu_torch.kernels.kmeans import lloyd_partials, lloyd_update
 from vq_tpu_torch.kernels.topk import ordered_topk
 
 
 def per_shard(mesh: Mesh, x, rows: bool = False) -> tuple:
-    """``x`` as one tensor per shard: a sequence of P tensors as it is, else
-    an array replicated (``rows=False``) or row-sharded (``rows=True``)."""
+    """``x`` as one tensor per shard: a sequence of P tensors as it is (None
+    at the shards of other ranks), else an array replicated
+    (``rows=False``) or row-sharded (``rows=True``)."""
     if isinstance(x, (list, tuple)):
         if len(x) != mesh.size:
             raise ValueError(f"{len(x)} shards for a mesh of {mesh.size}")
@@ -67,16 +71,19 @@ def _merge_local_topk(mesh: Mesh, scores: Sequence[torch.Tensor], ids: Sequence[
                       k: int, metric: Metric):
     """All-gather the shards' natural-form (Q, k) candidates at the root and
     take the global top-k → natural-form (scores, ids) on the root."""
-    ms, mi = _fold(mesh, None, [(_natural(s, metric), i) for s, i in zip(scores, ids)], k)
+    ms, mi = _fold(mesh, None, [None if s is None else (_natural(s, metric), i)
+                                for s, i in zip(scores, ids)], k)
     return _natural(ms, metric), mi
 
 
 def _fold(mesh: Mesh, run, parts, k: int):
     """Fold the shards' maximize-form (scores, ids) into the running top-k at
-    the root (``run`` None: the first chunk)."""
+    the root (``run`` None: the first chunk); ``parts`` holds None at the
+    shards of other ranks."""
     with on(mesh.root):
-        s_all = all_gather(mesh, [s for s, _ in parts])
-        i_all = all_gather(mesh, [i for _, i in parts])
+        scores, ids = unzip(parts)
+        s_all = all_gather(mesh, scores)
+        i_all = all_gather(mesh, ids)
         if run is not None:
             s_all = torch.cat([run[0], s_all], dim=1)
             i_all = torch.cat([run[1], i_all], dim=1)
@@ -85,16 +92,16 @@ def _fold(mesh: Mesh, run, parts, k: int):
 
 def merge_chunks(mesh: Mesh, chunks: int, scan_chunk: Callable, k: int):
     """The maximize-form top-k over ``chunks`` chunks of every shard's rows:
-    ``scan_chunk(p, c)`` → shard p's (scores, global ids) of chunk c, each
-    chunk folded into the running top-k at the root.  Chunk c+1's scans
-    are issued before chunk c's merge, so on a card the merge's copies
-    queue behind work already issued, not ahead of it."""
+    ``scan_chunk(p, c)`` → local shard p's (scores, global ids) of chunk c,
+    each chunk folded into the running top-k at the root.  Chunk c+1's
+    scans are issued before chunk c's merge, so on a card the merge's
+    copies queue behind work already issued, not ahead of it."""
     run = None
-    pending = [scan_chunk(p, 0) for p in range(mesh.size)]
+    pending = mesh.each(lambda p: scan_chunk(p, 0))
     for c in range(chunks):
         parts = pending
         if c + 1 < chunks:
-            pending = [scan_chunk(p, c + 1) for p in range(mesh.size)]
+            pending = mesh.each(lambda p, c=c: scan_chunk(p, c + 1))
         run = _fold(mesh, run, parts, k)
     return run
 
@@ -117,7 +124,7 @@ def _sharded_scan(mesh: Mesh, queries, codes, norms, scan_fn: Callable, k: int,
         raise ValueError("Metric.NIP requires norms")
     norms = per_shard(mesh, norms, rows=True) if norms is not None else (None,) * mesh.size
     extra_args = tuple(extra_args) or ((),) * mesh.size
-    n_loc = codes[0].shape[0]
+    n_loc = codes[mesh.local_shards[0]].shape[0]
     true_n = n_loc * mesh.size if true_n is None else int(true_n)
     chunks = max(1, min(overlap_chunks, n_loc))
     while n_loc % chunks:
@@ -144,7 +151,7 @@ def sharded_scan_topk(mesh: Mesh, queries, codes, codebooks, k: int,
                       overlap_chunks: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     """ADC search over a row-sharded PQ corpus with the cross-shard merge.
 
-    codes: one (N_pad/P, M) tensor per shard (``shard_rows``), or an
+    codes: one (N_pad/P, M) tensor per local shard (``shard_rows``), or an
     (N_pad, M) array that is sharded here; ``true_n`` masks the pad rows
     (global ids ≥ true_n never surface).  Each shard runs
     ``adc.scan_codes_topk`` (on a card: the fused PQ kernel at k ≤ 128,
@@ -199,15 +206,16 @@ def dp_lloyd_step(mesh: Mesh, x, centroids) -> torch.Tensor:
     Each shard sums its rows by cluster in a fixed order
     (``kmeans.lloyd_partials``: a stable sort and ``segment_reduce``), the
     partial sums and counts are summed over the shards in shard order
-    (``mesh.psum``), so the step is bit-equal from run to run."""
+    (``mesh.psum``), so the step is bit-equal from run to run, and equal
+    under a process group to the one-process mesh of as many shards."""
     xs = per_shard(mesh, x, rows=True)
     cs = per_shard(mesh, centroids)
-    sums, counts = [], []
-    for p, dev in enumerate(mesh.devices):
-        with on(dev):
-            s, n = lloyd_partials(xs[p][None].to(torch.float32), cs[p][None].to(torch.float32))
-            sums.append(s)
-            counts.append(n)
+
+    def partials(p):
+        with on(mesh.devices[p]):
+            return lloyd_partials(xs[p][None].to(torch.float32), cs[p][None].to(torch.float32))
+
+    sums, counts = unzip(mesh.each(partials))
     with on(mesh.root):
-        c0 = cs[0].to(torch.float32)[None]
+        c0 = cs[mesh.local_shards[0]].to(torch.float32)[None]
         return lloyd_update(psum(mesh, sums), psum(mesh, counts), c0)[0]

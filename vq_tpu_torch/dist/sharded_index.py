@@ -7,6 +7,11 @@ shard scans its rows and the candidates merge exactly at the root
 PQ kernel (the score kernel above k=128); ``ShardedFlatIndex`` serves any
 quantizer through the generic decode→score scan.  On a one-shard mesh the
 sharding is a no-op and results equal the flat index's.
+
+Under a process group every rank fits and encodes from the same host data,
+keeps its own shards' rows and gets the merged result, as the JAX
+package's multi-controller program does; ``memory_footprint`` is the
+whole mesh's on every rank.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ from vq_tpu_torch._device import as_f32
 from vq_tpu_torch.core.config import Metric, PQConfig, SearchConfig
 from vq_tpu_torch.dist.mesh import (
     as_tensor,
+    check_replicated,
+    gather_values,
     make_mesh,
     pad_rows_to_multiple,
     replicate,
@@ -65,10 +72,12 @@ class _ShardedFlat(BaseSearchIndex):
     def fit(self, X):
         """Fit the quantizer (unless it has params), encode X on its device,
         keep the row norms, pad the rows to a multiple of the mesh size and
-        shard them."""
+        shard them.  Under a group every rank fits from the same X, and the
+        params must agree (``check_replicated``)."""
         q = bind_to_mesh(self.quantizer, self.mesh)
         if q.params is None:
             q.fit(X)
+        check_replicated(self.mesh, q.params, f"{q.name}'s params")
         codes = q.compress(X)
         norms = torch.linalg.norm(as_f32(X, q.device), dim=-1)
         self._install(codes, norms, X.shape[0])
@@ -92,7 +101,12 @@ class _ShardedFlat(BaseSearchIndex):
         return self.norms if self.search_cfg.metric == Metric.NIP else None
 
     def memory_footprint(self) -> int:
-        total = sum(nbytes_of(a) for a in (self.codes or ()) + (self.norms or ()))
+        """Bytes of every shard's codes and norms (the whole mesh's, on every
+        rank) and of the params once."""
+        total = 0
+        if self.codes is not None:
+            total = sum(gather_values(self.mesh, self.mesh.each(
+                lambda p: nbytes_of(self.codes[p]) + nbytes_of(self.norms[p]))))
         return total + sum(nbytes_of(p) for p in tree_leaves(self.quantizer.params))
 
     def reconstruction_mse(self, X, sample: Optional[int] = 10000) -> float:
@@ -119,7 +133,7 @@ class ShardedFlatPQIndex(_ShardedFlat):
 
     def search_with_scores(self, queries, k: int = 10) -> Tuple[np.ndarray, np.ndarray]:
         """(nq, D) → ((nq, k) uint32 ids, (nq, k) scores) as numpy."""
-        codebooks = [r.params.codebooks for r in self._replicas]
+        codebooks = self.mesh.each(lambda p: self._replicas[p].params.codebooks)
         scores, ids = sharded_scan_topk(
             self.mesh, self._queries(queries), self.codes, codebooks, k=k,
             metric=self.search_cfg.metric, norms=self._norms_for_search(),
@@ -138,7 +152,7 @@ class ShardedFlatIndex(_ShardedFlat):
     def search_with_scores(self, queries, k: int = 10,
                            overlap_chunks: int = 1) -> Tuple[np.ndarray, np.ndarray]:
         """(nq, D) → ((nq, k) uint32 ids, (nq, k) scores) as numpy."""
-        fns = [r.decode_fn() for r in self._replicas]
+        fns = self.mesh.each(lambda p: self._replicas[p].decode_fn())
         scores, ids = sharded_generic_scan_topk(
             self.mesh, self._queries(queries), self.codes, fns, k=k,
             metric=self.search_cfg.metric, norms=self._norms_for_search(),

@@ -31,7 +31,16 @@ import torch
 from vq_tpu_torch._device import as_f32
 from vq_tpu_torch.core.config import IVFConfig, Metric, SearchConfig
 from vq_tpu_torch.data.sampling import chunk_rows_for_bytes
-from vq_tpu_torch.dist.mesh import make_mesh, on, put, replicate, replicate_quantizer
+from vq_tpu_torch.dist.mesh import (
+    check_replicated,
+    gather_values,
+    make_mesh,
+    on,
+    put,
+    replicate,
+    replicate_quantizer,
+    unzip,
+)
 from vq_tpu_torch.dist.sharded import _merge_local_topk
 from vq_tpu_torch.dist.sharded_index import _to_numpy, bind_to_mesh
 from vq_tpu_torch.index.base import BaseSearchIndex, nbytes_of
@@ -100,6 +109,8 @@ class ShardedIVFIndex(BaseSearchIndex):
         if self.quantizer.params is None:
             fit_quantizer_on_residuals(X, assignment, self.centroids, self.quantizer,
                                        seed=kcfg.seed)
+        check_replicated(self.mesh, (self.centroids, assignment, self.quantizer.params),
+                         "the coarse pass or the quantizer's params")
         codes, norms = encode_rows_ordered(X, order, assignment, self.centroids,
                                            self.quantizer, chunk)
         ids = order.to(torch.int32)
@@ -109,14 +120,15 @@ class ShardedIVFIndex(BaseSearchIndex):
         loads = np.bincount(shard_of, weights=sizes, minlength=self.num_shards).astype(np.int64)
         pad_to = int(loads.max()) + _PAD_SLACK
         starts = np.concatenate([[0], np.cumsum(loads)[:-1]])
-        codes_sh, ids_sh, norms_sh = [], [], []
-        for p, p_dev in enumerate(self.mesh.devices):
-            sl = slice(int(starts[p]), int(starts[p] + loads[p]))
-            pad = pad_to - int(loads[p])
-            codes_sh.append(put(torch.cat([codes[sl], codes.new_zeros(
-                (pad,) + tuple(codes.shape[1:]))]), p_dev))
-            ids_sh.append(put(torch.cat([ids[sl], ids.new_full((pad,), -1)]), p_dev))
-            norms_sh.append(put(torch.cat([norms[sl], norms.new_ones((pad,))]), p_dev))
+
+        def block(a, fill):
+            def take(p):
+                sl = slice(int(starts[p]), int(starts[p] + loads[p]))
+                pad = a.new_full((pad_to - int(loads[p]),) + tuple(a.shape[1:]), fill)
+                return put(torch.cat([a[sl], pad]), self.mesh.devices[p])
+            return self.mesh.each(take)
+
+        codes_sh, ids_sh, norms_sh = block(codes, 0), block(ids, -1), block(norms, 1)
         # the local offset of each list inside its shard's block (rows are
         # grouped by shard, then by cluster id)
         local_off = np.zeros(k, dtype=np.int32)
@@ -150,11 +162,11 @@ class ShardedIVFIndex(BaseSearchIndex):
             raise ValueError(f"windows chunk {chunk} > {_PAD_SLACK}")
         metric = self.search_cfg.metric
         q_root = as_f32(queries, self.mesh.root)
-        reps = zip(replicate(self.mesh, q_root), replicate(self.mesh, self.centroids),
-                   replicate(self.mesh, self.shard_of), replicate(self.mesh, self.local_off),
-                   replicate(self.mesh, self.sizes))
-        scores, ids = [], []
-        for p, (q, cents, shard_of, local_off, sizes) in enumerate(reps):
+        reps = [replicate(self.mesh, a) for a in (q_root, self.centroids, self.shard_of,
+                                                   self.local_off, self.sizes)]
+
+        def scan(p):
+            q, cents, shard_of, local_off, sizes = (r[p] for r in reps)
             quant = self._replicas[p]
             with on(self.mesh.devices[p]):
                 cd = pairwise_sqdist_xc(q, cents)  # (Q, K): the same on every shard
@@ -173,9 +185,9 @@ class ShardedIVFIndex(BaseSearchIndex):
                     s, gid = scan_probed_lists(q, probe, *args, chunk=chunk, **kw)
             # masked probes and pad slots carry −inf (maximize form): the
             # exact merge never surfaces them
-            scores.append(-s if metric == Metric.L2 else s)
-            ids.append(gid)
-        return _merge_local_topk(self.mesh, scores, ids, k, metric)
+            return (-s if metric == Metric.L2 else s), gid
+
+        return _merge_local_topk(self.mesh, *unzip(self.mesh.each(scan)), k, metric)
 
     def search_with_scores(self, queries, k: int = 10,
                            strategy: str = "union") -> Tuple[np.ndarray, np.ndarray]:
@@ -186,9 +198,13 @@ class ShardedIVFIndex(BaseSearchIndex):
 
     # ---------------------------------------------------------------- misc
     def memory_footprint(self) -> int:
-        arrays = (*(self.codes_sh or ()), *(self.ids_sh or ()), *(self.norms_sh or ()),
-                  self.centroids)
-        return (sum(nbytes_of(a) for a in arrays)
+        """Bytes of every shard's lists (the whole mesh's, on every rank), of
+        the centroids and of the params once."""
+        total = 0
+        if self.codes_sh is not None:
+            total = sum(gather_values(self.mesh, self.mesh.each(lambda p: sum(
+                nbytes_of(a[p]) for a in (self.codes_sh, self.ids_sh, self.norms_sh)))))
+        return (total + nbytes_of(self.centroids)
                 + sum(nbytes_of(p) for p in tree_leaves(self.quantizer.params)))
 
     def reconstruction_mse(self, X, sample: Optional[int] = 10000) -> float:

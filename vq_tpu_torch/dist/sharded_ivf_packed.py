@@ -33,15 +33,23 @@ from vq_tpu_torch.core.config import IVFConfig, SearchConfig
 from vq_tpu_torch.data.sampling import chunk_rows_for_bytes, host_sample_rows
 from vq_tpu_torch.dist.mesh import (
     all_gather,
+    check_replicated,
+    check_savable,
+    gather_values,
     make_mesh,
     on,
     put,
     replicate,
     replicate_quantizer,
+    unzip,
 )
 from vq_tpu_torch.dist.sharded import merge_topk
 from vq_tpu_torch.dist.sharded_index import _to_numpy, bind_to_mesh
-from vq_tpu_torch.dist.sharded_packed import check_num_shards, stacked_shards
+from vq_tpu_torch.dist.sharded_packed import (
+    check_num_shards,
+    shared_prune_hint,
+    stacked_shards,
+)
 from vq_tpu_torch.index.base import BaseSearchIndex, nbytes_of
 from vq_tpu_torch.index.ivf import chunked_assign, coarse_pass, encode_rows_ordered
 from vq_tpu_torch.index.ivf_packed import default_mask_cap, tile_mask_from_probes
@@ -66,9 +74,9 @@ class ShardedIvfPackedIndex(BaseSearchIndex):
         self.centroids: Optional[torch.Tensor] = None  # (K, D) on the root
         self.num_rows = 0
         self._n_loc = 0
-        self.shards: List[PackedCorpus] = []  # order-preserving, one per shard
-        self._ids = None  # per shard (n_loc,) i32: local position → global row id (−1: pad)
-        self._cl_first = self._cl_last = None  # per shard (n_loc/512,) i32
+        self.shards: List[Optional[PackedCorpus]] = []  # order-preserving, a local shard's
+        self._ids = None  # per local shard (n_loc,) i32: local position → global id (−1: pad)
+        self._cl_first = self._cl_last = None  # per local shard (n_loc/512,) i32
         self._replicas = None
 
     @property
@@ -90,6 +98,8 @@ class ShardedIvfPackedIndex(BaseSearchIndex):
         order = torch.argsort(assignment, stable=True)
         if self.quantizer.params is None:
             self.quantizer.fit(host_sample_rows(X, 200_000, kcfg.seed))
+        check_replicated(self.mesh, (centroids, assignment, self.quantizer.params),
+                         "the coarse pass or the quantizer's params")
         codes, norms = encode_rows_ordered(
             X, order, torch.zeros((n,), dtype=torch.int32, device=dev),
             torch.zeros((1, d), dtype=torch.float32, device=dev), self.quantizer, chunk)
@@ -111,12 +121,9 @@ class ShardedIvfPackedIndex(BaseSearchIndex):
 
         self._replicas = replicate_quantizer(self.mesh, self.quantizer)
         nb_loc = n_loc // TILE
-        shards, ids_sh, firsts_sh, lasts_sh = [], [], [], []
-        for p, p_dev in enumerate(self.mesh.devices):
-            sl = slice(p * n_loc, (p + 1) * n_loc)
-            ids_sh.append(ids[sl])
-            firsts_sh.append(firsts[p * nb_loc:(p + 1) * nb_loc])
-            lasts_sh.append(lasts[p * nb_loc:(p + 1) * nb_loc])
+
+        def build(p):
+            p_dev, sl = self.mesh.devices[p], slice(p * n_loc, (p + 1) * n_loc)
             with on(p_dev):
                 cache = self._replicas[p].prepare_tile_cache(
                     put(codes[sl], p_dev), norms=put(norms[sl], p_dev),
@@ -126,23 +133,29 @@ class ShardedIvfPackedIndex(BaseSearchIndex):
                                    "dist.sharded_ivf.ShardedIVFIndex")
             if cache.perm is not None:
                 raise RuntimeError("prepare_tile_cache must keep the rows' order (perm None)")
-            shards.append(cache)
-        self._install(centroids, shards, ids_sh, firsts_sh, lasts_sh, n, n_loc)
+            return cache
+
+        self._install(centroids, self.mesh.each(build),
+                      self.mesh.each(lambda p: ids[p * n_loc:(p + 1) * n_loc]),
+                      self.mesh.each(lambda p: firsts[p * nb_loc:(p + 1) * nb_loc]),
+                      self.mesh.each(lambda p: lasts[p * nb_loc:(p + 1) * nb_loc]), n, n_loc)
         return self
 
     def _install(self, centroids, shards, ids, cl_first, cl_last, num_rows: int,
                  n_loc: int) -> None:
-        """Per-shard state onto each shard's device (the lists in shard
-        order); the centroids on the root."""
-        devs = self.mesh.devices
-        self.centroids = put(centroids, self.mesh.root).to(torch.float32).contiguous()
-        hint = any(c.prune_hint for c in shards)
+        """Per-shard state onto each local shard's device (the lists in shard
+        order, None at the shards of other ranks); the centroids on the
+        root."""
+        mesh = self.mesh
+        self.centroids = put(centroids, mesh.root).to(torch.float32).contiguous()
+        hint = shared_prune_hint(mesh, shards)
         for c in shards:
-            c.prune_hint = hint
+            if c is not None:
+                c.prune_hint = hint
         self.shards = list(shards)
-        self._ids = [put(a, d).to(torch.int32) for a, d in zip(ids, devs)]
-        self._cl_first = [put(a, d).to(torch.int32) for a, d in zip(cl_first, devs)]
-        self._cl_last = [put(a, d).to(torch.int32) for a, d in zip(cl_last, devs)]
+        self._ids, self._cl_first, self._cl_last = (
+            list(mesh.each(lambda p, a=a: put(a[p], mesh.devices[p]).to(torch.int32)))
+            for a in (ids, cl_first, cl_last))
         self.num_rows = int(num_rows)
         self._n_loc = int(n_loc)
 
@@ -154,21 +167,22 @@ class ShardedIvfPackedIndex(BaseSearchIndex):
         k_cl = int(self.centroids.shape[0])
         n_loc, true_n = self._n_loc, self.num_rows
         mask_cap = default_mask_cap(n_loc // TILE, nprobe, true_n, k_cl)
-        scores, gids = [], []
-        for p, (qp, cents) in enumerate(zip(replicate(self.mesh, q),
-                                            replicate(self.mesh, self.centroids))):
+        qs, cs = replicate(self.mesh, q), replicate(self.mesh, self.centroids)
+
+        def scan(p):
             dev = self.mesh.devices[p]
             with on(dev):
-                _, probe = ordered_topk(-pairwise_sqdist_xc(qp, cents), nprobe)
+                _, probe = ordered_topk(-pairwise_sqdist_xc(qs[p], cs[p]), nprobe)
                 mask = tile_mask_from_probes(probe, self._cl_first[p], self._cl_last[p], k_cl)
                 s, pos = self._replicas[p].packed_scan_raw(
-                    qp, self.shards[p], k, metric,
+                    qs[p], self.shards[p], k, metric,
                     num_valid=min(max(true_n - p * n_loc, 0), n_loc),
                     use_bf16=self.search_cfg.use_bf16 and bf16_supported(dev),
                     tile_mask=mask, mask_cap=mask_cap)
                 gid = self._ids[p][torch.clamp(pos.long(), 0, n_loc - 1)]
-            scores.append(torch.where(gid < 0, torch.full_like(s, -math.inf), s))
-            gids.append(gid)
+            return torch.where(gid < 0, torch.full_like(s, -math.inf), s), gid
+
+        scores, gids = unzip(self.mesh.each(scan))
         # each shard's candidates come in (score, local position) order and
         # the shards in global position order, so the positional merge of the
         # kernel's scores keeps IvfPackedFlatIndex's order, ties included
@@ -185,9 +199,15 @@ class ShardedIvfPackedIndex(BaseSearchIndex):
 
     # ---------------------------------------------------------------- misc
     def memory_footprint(self) -> int:
-        leaves = [a for c in self.shards for a in list(c.words) + [c.factors, c.tile_stats]]
-        leaves += [*self._ids, *self._cl_first, *self._cl_last, self.centroids]
-        return (sum(nbytes_of(a) for a in leaves)
+        """Bytes of every shard's state (the whole mesh's, on every rank), of
+        the centroids and of the params once."""
+        def shard_bytes(p):
+            c = self.shards[p]
+            return sum(nbytes_of(a) for a in list(c.words) + [
+                c.factors, c.tile_stats, self._ids[p], self._cl_first[p], self._cl_last[p]])
+
+        return (sum(gather_values(self.mesh, self.mesh.each(shard_bytes)))
+                + nbytes_of(self.centroids)
                 + sum(nbytes_of(p) for p in tree_leaves(self.quantizer.params)))
 
     def reconstruction_mse(self, X, sample: Optional[int] = 10000) -> float:
@@ -196,7 +216,10 @@ class ShardedIvfPackedIndex(BaseSearchIndex):
     # ------------------------------------------------------------ save/load
     def _state(self) -> dict:
         """Per-shard leaves stacked as (P, …) numpy arrays (factors (P, F,
-        n_loc)); a load needs a mesh of the same size."""
+        n_loc)); a load needs a mesh of the same size.  A mesh over several
+        ranks cannot be saved (``check_savable``)."""
+        check_savable(self.mesh)
+
         def stack(leaves):
             return None if leaves[0] is None else np.stack([a.cpu().numpy() for a in leaves])
 

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import math
 import pickle
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,7 +31,16 @@ import torch
 from vq_tpu_torch._device import as_f32, bf16_supported
 from vq_tpu_torch.core.config import SearchConfig
 from vq_tpu_torch.data.sampling import chunk_rows_for_bytes
-from vq_tpu_torch.dist.mesh import make_mesh, on, put, replicate, replicate_quantizer
+from vq_tpu_torch.dist.mesh import (
+    check_replicated,
+    check_savable,
+    gather_values,
+    make_mesh,
+    on,
+    put,
+    replicate,
+    replicate_quantizer,
+)
 from vq_tpu_torch.dist.sharded import merge_chunks
 from vq_tpu_torch.dist.sharded_index import _to_numpy, bind_to_mesh
 from vq_tpu_torch.index.base import BaseSearchIndex, nbytes_of
@@ -69,7 +78,7 @@ class ShardedPackedFlatIndex(BaseSearchIndex):
         self.mesh = mesh if mesh is not None else make_mesh()
         self.num_rows = 0
         self._n_loc = 0
-        self.shards: List[PackedCorpus] = []  # one cache per shard, perm always set
+        self.shards: List[Optional[PackedCorpus]] = []  # a cache per local shard, perm set
         self._replicas = None
 
     @property
@@ -82,6 +91,7 @@ class ShardedPackedFlatIndex(BaseSearchIndex):
         q = bind_to_mesh(self.quantizer, self.mesh)
         if q.params is None:
             q.fit(X)
+        check_replicated(self.mesh, q.params, f"{q.name}'s params")
         dev = q.device
         # the chunked flat encode: the IVF streamed-encode core with a zero
         # centroid (residual == row); norms ride along for Metric.NIP
@@ -93,8 +103,8 @@ class ShardedPackedFlatIndex(BaseSearchIndex):
         return self
 
     def _install(self, codes: torch.Tensor, norms: torch.Tensor, n: int) -> None:
-        """Pad to a multiple of P·512 rows and build each shard's cache from
-        its block, on its device."""
+        """Pad to a multiple of P·512 rows and build each local shard's cache
+        from its block, on its device."""
         p_cnt = self.num_shards
         blk = p_cnt * TILE
         n_pad = -(-n // blk) * blk
@@ -102,9 +112,9 @@ class ShardedPackedFlatIndex(BaseSearchIndex):
         codes = torch.cat([codes, codes.new_zeros((n_pad - n,) + tuple(codes.shape[1:]))])
         norms = torch.cat([norms, norms.new_ones((n_pad - n,))])
         self._replicas = replicate_quantizer(self.mesh, self.quantizer)
-        shards = []
-        for p, dev in enumerate(self.mesh.devices):
-            sl = slice(p * n_loc, (p + 1) * n_loc)
+
+        def build(p):
+            dev, sl = self.mesh.devices[p], slice(p * n_loc, (p + 1) * n_loc)
             with on(dev):
                 cache = self._replicas[p].prepare_shard_cache(
                     put(codes[sl], dev), norms=put(norms[sl], dev),
@@ -115,14 +125,17 @@ class ShardedPackedFlatIndex(BaseSearchIndex):
                                    "with dist.sharded_index.ShardedFlatIndex")
             if cache.perm is None:  # one search program for both layouts
                 cache.perm = torch.arange(n_loc, dtype=torch.int32, device=dev)
-            shards.append(cache)
-        self._set_shards(shards, n, n_loc)
+            return cache
 
-    def _set_shards(self, shards: List[PackedCorpus], num_rows: int, n_loc: int) -> None:
+        self._set_shards(list(self.mesh.each(build)), n, n_loc)
+
+    def _set_shards(self, shards: List[Optional[PackedCorpus]], num_rows: int,
+                    n_loc: int) -> None:
         # one rule for all shards: prune iff ANY shard's tile bounds can fire
-        hint = any(c.prune_hint for c in shards)
+        hint = shared_prune_hint(self.mesh, shards)
         for c in shards:
-            c.prune_hint = hint
+            if c is not None:
+                c.prune_hint = hint
         self.shards = shards
         self.num_rows = int(num_rows)
         self._n_loc = int(n_loc)
@@ -164,8 +177,13 @@ class ShardedPackedFlatIndex(BaseSearchIndex):
 
     # ---------------------------------------------------------------- misc
     def memory_footprint(self) -> int:
-        total = sum(nbytes_of(a) for c in self.shards
-                    for a in list(c.words) + [c.factors, c.tile_stats, c.perm])
+        """Bytes of every shard's cache (the whole mesh's, on every rank) and
+        of the params once."""
+        total = 0
+        if self.shards:
+            total = sum(gather_values(self.mesh, self.mesh.each(lambda p: sum(
+                nbytes_of(a) for a in list(self.shards[p].words) + [
+                    self.shards[p].factors, self.shards[p].tile_stats, self.shards[p].perm]))))
         return total + sum(nbytes_of(p) for p in tree_leaves(self.quantizer.params))
 
     def reconstruction_mse(self, X, sample: Optional[int] = 10000) -> float:
@@ -176,7 +194,10 @@ class ShardedPackedFlatIndex(BaseSearchIndex):
         """The per-shard caches stacked as (P, …) numpy arrays, factors
         (P, F, n_loc).  Each shard's layout (its local norm order and pad
         tail) is baked into them, so a load needs a mesh of the same size:
-        P shards do not re-split over another count (refit instead)."""
+        P shards do not re-split over another count (refit instead).  A mesh
+        over several ranks cannot be saved (``check_savable``)."""
+        check_savable(self.mesh)
+
         def stack(get):
             leaves = [get(c) for c in self.shards]
             return None if leaves[0] is None else np.stack([a.cpu().numpy() for a in leaves])
@@ -214,17 +235,22 @@ def check_num_shards(state: dict, mesh) -> None:
                          "this mesh")
 
 
-def stacked_shards(mesh, state: dict) -> List[PackedCorpus]:
+def shared_prune_hint(mesh, shards: Sequence[Optional[PackedCorpus]]) -> bool:
+    """Whether any shard's tile bounds can fire, over every rank's shards."""
+    return any(gather_values(mesh, [None if c is None else c.prune_hint for c in shards]))
+
+
+def stacked_shards(mesh, state: dict) -> List[Optional[PackedCorpus]]:
     """(P, …) stacked cache leaves (``_state``'s layout: factors (P, F, n))
-    → one PackedCorpus per shard on its device."""
-    out = []
-    for p, dev in enumerate(mesh.devices):
-        stats = state["stats"]
-        out.append(PackedCorpus(
+    → one PackedCorpus per local shard on its device (None at the others)."""
+    def load(p):
+        dev, stats = mesh.devices[p], state["stats"]
+        return PackedCorpus(
             words=tuple(put(w[p], dev) for w in state["words"]),
             factors=put(state["factors"][p], dev), num_rows=state["factors"].shape[2],
             tile_stats=None if stats is None else put(stats[p], dev),
             has_norms=state["has_norms"],
             perm=None if state["perm"] is None else put(state["perm"][p], dev),
-            prune_hint=state["prune_hint"]))
-    return out
+            prune_hint=state["prune_hint"])
+
+    return list(mesh.each(load))
