@@ -165,6 +165,23 @@ Phases (any failure exits non-zero; nothing is caught):
    merges gone through ``torch.distributed``; each search's ms per rank
    beside the witness's, and the merge's (``_fold``) at Q=1024.
 
+17. The headline benchmark (``vq_tpu_torch/bench/headline.py``, bench.py on
+   the port) in ``--fast`` form in this process: every section reports
+   (``errors`` empty), the exactness assert is true and ran the kernels on
+   the card, the PQ-192 gate is at or above 0.763; its record is logged
+   field by field.  The launches of its exactness assert (kernels against
+   their plain versions) stay out of the path's count.
+18. The 53M-row envelope (``vq_tpu_torch/bench/scan53m.py``,
+   scripts/scan53m.py on the port) at N=53,000,000, D=1024, in 131,072-row
+   chunks made on the card: PQ M=16 (codes resident, the fused kernel at
+   Q=1024) and SAQ bpd=1 (the packed cache filled in place, the dense
+   packed kernel at Q=256), each with top-1 source recovery ≥ 0.95 and
+   its peak device memory.
+19. ``vq_tpu_torch.entry.entry()`` (``__graft_entry__.entry()`` on the
+   port) once: one fused-kernel launch, held to the plain bf16 version.
+   Phases 17-19 run after phase 15, once the earlier phases' corpora are
+   freed, and before phase 14.
+
 Phases 6 and 9 hold a fifth configuration, RankAware bpd=2 (one segment
 per bit width, "perdim" and "values", no per-row scale: scale_col −1), and
 phase 6 its FFD packing once.
@@ -172,8 +189,8 @@ phase 6 its FFD packing once.
 The line before the last is a JSON object of the kernels: launches of
 phase 14's CLI steps (which run all four kernels), with each path's
 own count beside them (``launches_by_path``: each path's counters read
-just after it, phase 15's among them, and phase 16's ranks' summed over
-the ranks); errors from phases 3, 6, 9, 14
+just after it, phases 15, 17, 18 and 19's among them, and phase 16's
+ranks' summed over the ranks); errors from phases 3, 6, 9, 14
 and 15, times from 3, 6 and 9; each kernel's bound, the least time the card could take for the timed
 call.  A
 ``[launches] by path`` line before it holds the same counts by path;
@@ -204,13 +221,6 @@ RECALL_GATE_PQ192_FLOOR = 0.763  # bench.py:48
 # so lone f32 adds (the PQ tables' sums) peak at half of it.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12, "f32 add": 33.5e12}
-# f32 mode: kernel and plain scores differ only in the order of f32 sums
-# (per-subspace table entries vs one length-D dot product).  The rounding
-# error of a sum is relative to the magnitude of its terms, not of the
-# result (an L2 score 2·q·x̂ − ‖x̂‖² can be near 0 while its terms are not);
-# for D=1536 the worst case is ~D·2⁻²⁴ ≈ 1e-4 of that magnitude.  So scores
-# agree within 1e-4 · (‖q‖² + 2·max‖x̂‖²), a per-query bound on |terms|
-F32_RTOL = 1e-4
 BF16_MIN_RECALL = 0.99
 # A row rescored in f32 beside a bf16 search's score: the search rounds the
 # query and the decoded values to bf16 (relative error ≤ 2^-9 each), so the
@@ -335,32 +345,15 @@ def packed_bound(torch, a):
 
 
 # ------------------------------------------------------------------ data
-def powerlaw_corpus(torch, n, d, nq, seed, dev):
-    """bench.py:79-88: rows N(0, diag σ²) with σ_i = (1+i)^-0.75; queries are
-    corpus rows jittered by 0.25σ."""
-    g = torch.Generator(device=dev).manual_seed(seed)
-    sigma = (1.0 + torch.arange(d, device=dev, dtype=torch.float32)) ** -0.75
-    x = torch.randn((n, d), generator=g, device=dev).mul_(sigma)
-    qidx = torch.randint(0, n, (nq,), generator=g, device=dev)
-    q = x[qidx] + 0.25 * sigma * torch.randn((nq, d), generator=g, device=dev)
-    return x, q
-
-
-def planted_corpus(torch, n, d, nq, seed, dev, rank=32, csize=10, spread=0.5):
-    """bench.py:196-215: a rank-32 manifold in D with 10-row near-duplicate
-    neighbourhoods, unit-normalized rows (the port's ``planted-NxD``
-    generator, ``data/datasets.py::planted_arrays``)."""
-    from vq_tpu_torch.data.datasets import planted_arrays
-
-    return planted_arrays(n, d, nq, rank, csize, spread, seed, dev)
-
-
 def remake(torch, maker, dev):
     """A corpus (x, q) from a context's ``maker``: the name of its function
-    here and the arguments before the device (phases 13, 15 and 16 remake
-    phases 4, 7 and 10's corpora from their seeds)."""
+    in ``vq_tpu_torch/bench/corpora.py`` and the arguments before the
+    device (phases 13, 15 and 16 remake phases 4, 7 and 10's corpora from
+    their seeds)."""
+    from vq_tpu_torch.bench import corpora
+
     name, args = maker
-    return globals()[name](torch, *args, dev=dev)[:2]
+    return getattr(corpora, name)(*args, device=dev)[:2]
 
 
 def random_codebooks(torch, x, m, kk, seed):
@@ -380,13 +373,6 @@ def recall(gt, ids, k: int) -> float:
 
 
 # ---------------------------------------------------------------- phase 3
-def f32_tol(torch, q, cb):
-    """(Q, 1) tolerance: F32_RTOL · (‖q‖² + 2·Σ_m max_c ‖c_mc‖²), which
-    bounds |2·q·x̂| + ‖x̂‖² for every row (see F32_RTOL)."""
-    x_max = torch.sum(torch.amax(torch.sum(cb * cb, dim=-1), dim=-1))
-    return F32_RTOL * (torch.sum(q * q, dim=1, keepdim=True) + 2.0 * x_max)
-
-
 def check_scores(torch, got, want, tol, what):
     err = (got - want).abs()
     bad = int((err > tol).sum())
@@ -398,22 +384,23 @@ def check_scores(torch, got, want, tol, what):
 def check_topk_f32(torch, got_s, got_i, ref_s, ref_i, k, tol, what):
     """ref_* are the plain version's top-(k+1).  Scores within tolerance;
     ids equal as sets where the k-th/(k+1)-th gap exceeds the tolerance,
-    and position by position where every adjacent gap does."""
-    err = check_scores(torch, got_s, ref_s[:, :k], tol, what)
-    gaps = ref_s[:, :-1] - ref_s[:, 1:]
-    sep = gaps[:, k - 1:k] > tol
-    sets_ok = (torch.sort(got_i, 1).values == torch.sort(ref_i[:, :k], 1).values).all(1)
-    require(bool((sets_ok | ~sep[:, 0]).all()), f"{what}: id sets differ at separated queries")
-    ordered = (gaps[:, :k] > tol).all(1)
-    pos_ok = (got_i == ref_i[:, :k]).all(1)
-    require(bool((pos_ok | ~ordered).all()), f"{what}: id order differs at separated queries")
-    return err, int(sep.sum()), int(ordered.sum())
+    and position by position where every adjacent gap does
+    (``tolerance.topk_agreement``)."""
+    from vq_tpu_torch.bench import tolerance
+
+    r = tolerance.topk_agreement(got_s, got_i, ref_s, ref_i, k, tol)
+    require(r["scores"], f"{what}: scores off by more than the f32 tolerance (worst "
+                         f"err/tol {r['worst']:.3g})")
+    require(r["sets"], f"{what}: id sets differ at separated queries")
+    require(r["order"], f"{what}: id order differs at separated queries")
+    return r["err"], r["separated"], r["ordered"]
 
 
 def phase_kernel_edges(torch, dev, nq=517, n=20000):
     """Small shapes: odd Q, ragged N, chunks of several row tiles, limit
     masking, limit < k, k = 128, IP, planted ties.  f32 ids must equal the
     plain version's where scores are separated; ties go to the lower id."""
+    from vq_tpu_torch.bench.tolerance import f32_tol
     from vq_tpu_torch.kernels import pq_scan as ps
 
     ps.reset_launch_counts()
@@ -422,7 +409,7 @@ def phase_kernel_edges(torch, dev, nq=517, n=20000):
     q = torch.randn((nq, 64), generator=g, device=dev)
     codes = torch.randint(0, 256, (n, 8), generator=g, device=dev).to(torch.uint8)
     cb = torch.randn((8, 256, 8), generator=g, device=dev)
-    tol = f32_tol(torch, q, cb)
+    tol = f32_tol(q, cb)
     for l2 in (True, False):
         s = ps.pq_score_all(q, codes, cb, l2=l2, use_bf16=False)
         check_scores(torch, s, ps.pq_score_all_plain(q, codes, cb, l2, False), tol,
@@ -449,7 +436,7 @@ def phase_kernel_edges(torch, dev, nq=517, n=20000):
     q = torch.randn((nq, 512), generator=g, device=dev)
     codes = torch.randint(0, 256, (n, 256), generator=g, device=dev).to(torch.uint8)
     cb = torch.randn((256, 256, 2), generator=g, device=dev)
-    tol = f32_tol(torch, q, cb)
+    tol = f32_tol(q, cb)
     check_scores(torch, ps.pq_score_all(q, codes, cb, use_bf16=False),
                  ps.pq_score_all_plain(q, codes, cb, True, False), tol, "score_all M=256")
     ks, ki = ps.pq_scan_topk_fused(q, codes, cb, 10, limit=n - 77, use_bf16=False)
@@ -484,6 +471,7 @@ def phase_decode_edges(torch, dev):
     a row tile stages); k = 1, 10, 128, limit < k.  Ids below the limit,
     limit < k leaving -inf / id 0, the fused top-k = the top-k of the score
     kernel's scores bit for bit, planted ties giving ids 0..k-1."""
+    from vq_tpu_torch.bench.tolerance import f32_tol
     from vq_tpu_torch.kernels import pq_scan as ps
 
     t0 = time.perf_counter()
@@ -496,7 +484,7 @@ def phase_decode_edges(torch, dev):
         q = torch.randn((nq, m * dsub), generator=g, device=dev)
         codes = torch.randint(0, kk, (n, m), generator=g, device=dev).to(torch.uint8)
         cb = torch.randn((m, kk, dsub), generator=g, device=dev)
-        tol = f32_tol(torch, q, cb)
+        tol = f32_tol(q, cb)
         for l2 in (True, False):
             s = pq_call(torch, "decode", q, codes, cb, l2=l2)
             worst = max(worst, check_scores(torch, s, ps.pq_score_all_plain(q, codes, cb, l2, True),
@@ -533,19 +521,21 @@ def phase_kernels(torch, dev, results, n=100_000, d=1536, nq=1024):
     bounds.  At M = 16, 48, 96 and 192 (dsub 96, 32, 16, 8): both routes
     timed in bf16, each with its fused top-k = the score kernel's bit for
     bit, and the route pq_route picks."""
+    from vq_tpu_torch.bench import corpora
+    from vq_tpu_torch.bench.tolerance import f32_tol
     from vq_tpu_torch.kernels import pq_scan as ps
     from vq_tpu_torch.kernels.topk import ordered_topk
     from vq_tpu_torch.methods.pq import encode_chunked
 
     k = 10
-    x, q = powerlaw_corpus(torch, n, d, nq, seed=3, dev=dev)
+    x, q = corpora.powerlaw(n, d, nq, seed=3, device=dev)
     for m in (16, 48, 96, 192):
         cb = random_codebooks(torch, x, m, 256, seed=m)
         codes = encode_chunked(cb, x)
         tag = f"M={m} dsub={d // m}"
         if m in (16, 192):
             # f32 mode (the table route)
-            tol = f32_tol(torch, q, cb)
+            tol = f32_tol(q, cb)
             s_k = ps.pq_score_all(q, codes, cb, use_bf16=False)
             s_p = ps.pq_score_all_plain(q, codes, cb, True, False)
             err_score = check_scores(torch, s_k, s_p, tol, f"score_all f32 {tag}")
@@ -654,12 +644,13 @@ def profile_search(torch, index, q, ks=(10, 100, 256), tag="", reps: int = 5) ->
 
 def phase_main(torch, dev, n=1_000_000, d=1536, nq=1024, profile=True):
     from vq_tpu_torch import KMeansConfig, PQConfig, SearchConfig
+    from vq_tpu_torch.bench import corpora
     from vq_tpu_torch.index.flat import FlatQuantizedIndex
     from vq_tpu_torch.kernels import pq_scan as ps
     from vq_tpu_torch.kernels.adc import _score_kernel_topk, exact_topk
     from vq_tpu_torch.methods.pq import PQ
 
-    (x, q), t_gen = wall_s(torch, lambda: powerlaw_corpus(torch, n, d, nq, seed=0, dev=dev))
+    (x, q), t_gen = wall_s(torch, lambda: corpora.powerlaw(n, d, nq, seed=0, device=dev))
     log(f"[phase 4] corpus N={n} D={d} Q={nq} on {dev}: {t_gen:.3f} s "
         f"({x.numel() * 4 / 1e9:.2f} GB)")
     ps.reset_launch_counts()
@@ -725,18 +716,19 @@ def phase_main(torch, dev, n=1_000_000, d=1536, nq=1024, profile=True):
     del x, q
     torch.cuda.empty_cache()
     # phases 13 and 16 remake the corpus from its seed and reuse the fit
-    return launches, dict(maker=("powerlaw_corpus", (n, d, nq, 0)), pq=pq, index=index, gt=gt)
+    return launches, dict(maker=("powerlaw", (n, d, nq, 0)), pq=pq, index=index, gt=gt)
 
 
 # ---------------------------------------------------------------- phase 5
 def phase_gate(torch, dev, n=100_000, d=1536, nq=1024):
     from vq_tpu_torch import KMeansConfig, PQConfig, SearchConfig
+    from vq_tpu_torch.bench import corpora
     from vq_tpu_torch.index.flat import FlatQuantizedIndex
     from vq_tpu_torch.kernels.adc import exact_topk
     from vq_tpu_torch.methods.pq import PQ
 
     k = 10
-    x, q = planted_corpus(torch, n, d, nq, seed=0, dev=dev)
+    x, q = corpora.planted(n, d, nq, seed=0, device=dev)
     _, gt = exact_topk(q, x, k)
     pq = PQ(PQConfig(num_subquantizers=192, num_bits=8, kmeans=KMeansConfig(iters=10)),
             seed=1, device=dev)
@@ -749,52 +741,6 @@ def phase_gate(torch, dev, n=100_000, d=1536, nq=1024):
 
 
 # ---------------------------------------------------------------- phase 6
-def packed_corpus(torch, n, d, nq, seed, dev, lognormal=False):
-    """bench.py:254-275 (and :316-341 with `lognormal`): rows N(0, diag σ²),
-    σ_i = (1+i)^-0.6, optionally times a lognormal row scale exp(0.5·N(0,1));
-    queries are corpus rows jittered by 0.1σ.  Returns (x, q, σ)."""
-    g = torch.Generator(device=dev).manual_seed(seed)
-    sigma = (1.0 + torch.arange(d, device=dev, dtype=torch.float32)) ** -0.6
-    x = torch.randn((n, d), generator=g, device=dev).mul_(sigma)
-    if lognormal:
-        x.mul_(torch.exp(0.5 * torch.randn((n, 1), generator=g, device=dev)))
-    qidx = torch.randint(0, n, (nq,), generator=g, device=dev)
-    q = x[qidx] + 0.1 * sigma * torch.randn((nq, d), generator=g, device=dev)
-    return x, q, sigma
-
-
-def packed_tol(torch, a):
-    """(Q, 1) f32 tolerance of a packed scan (``a``: packed_scan_topk's
-    arguments): F32_RTOL times a bound on the magnitude of the score's terms,
-    c·‖q‖·max‖x̂‖ + |qa| (+ max |L2 shift|; over the least row norm for NIP),
-    x̂ a row's scaled values.  Kernel and plain sum the same products in
-    another order (see F32_RTOL)."""
-    from vq_tpu_torch.kernels import packed_scan as pk
-
-    fac = a["factors"]
-    n = fac.shape[1]
-    r2 = torch.zeros((n,), device=fac.device)
-    li = 0
-    for w, seg in zip(a["words"], a["segs"]):
-        lv = None
-        if seg.dequant in ("perdim", "shared"):
-            lv, li = a["lv_tables"][li], li + 1
-        for r0 in range(0, n, 16384):
-            r1 = min(n, r0 + 16384)
-            rows = w[r0:r1] if seg.dequant == "values" else w[r0 // seg.u:r1 // seg.u]
-            scale = fac[seg.scale_col, r0:r1] if seg.scale_col >= 0 else None
-            r2[r0:r1] += torch.sum(pk.dequant_seg(rows, seg, lv, scale) ** 2, dim=1)
-    qx = torch.linalg.norm(a["q_cat"], dim=1, keepdim=True) * torch.sqrt(r2.max())
-    qa = a["qa"].abs()[:, None]
-    if a["metric_kind"] == "l2":
-        shift = sum(fac[c] for c in a["r2_cols"]).abs().max()
-        return F32_RTOL * (2.0 * qx + qa + shift)
-    tol = F32_RTOL * (qx + qa)
-    if a["metric_kind"] == "nip":
-        tol = tol / torch.clamp(fac[a["norm_col"]], min=1e-30).min()
-    return tol
-
-
 def packed_configs(torch, x, q, norms, tile_cache=False):
     """(tag, args(metric, k, use_bf16, prune, limit) → packed_scan_topk
     arguments for the queries q, dequant kinds, quantizer, packed corpus)
@@ -924,6 +870,7 @@ def phase_packed_edges(torch, dev, q, m, packed, codes):
     k-steps -- against the plain bf16 version: ids below the limit and a
     pooled recall ≥ BF16_MIN_RECALL."""
     from vq_tpu_torch import Metric
+    from vq_tpu_torch.bench.tolerance import packed_tol
     from vq_tpu_torch.kernels import packed_scan as pk
     from vq_tpu_torch.methods import saq as sq
 
@@ -939,13 +886,13 @@ def phase_packed_edges(torch, dev, q, m, packed, codes):
                     "packed limit < k must leave -inf / id 0")
             continue
         rs, ri = pk.packed_scan_topk_plain(**{**a, "k": k + 1})
-        check_topk_f32(torch, ks, ki, rs, ri, k, packed_tol(torch, a),
+        check_topk_f32(torch, ks, ki, rs, ri, k, packed_tol(a),
                        f"packed edge k={k} limit={limit}")
     small = sq.prepare_packed(m.plan, m.params, codes[:300])  # one tile, 212 pad rows
     a = sq.packed_scan_args(m.plan, m.params, q, small, 10, Metric.IP, use_bf16=False)
     ks, ki = pk.packed_scan_topk(**a)
     rs, ri = pk.packed_scan_topk_plain(**{**a, "k": 11})
-    check_topk_f32(torch, ks, ki, rs, ri, 10, packed_tol(torch, a), "packed edge N=300")
+    check_topk_f32(torch, ks, ki, rs, ri, 10, packed_tol(a), "packed edge N=300")
     same = sq.prepare_packed(m.plan, m.params, codes[:1].repeat(3000, 1))
     for k in (6, 100):  # every row identical → ids 0..k-1 in order
         a = sq.packed_scan_args(m.plan, m.params, q, same, k, Metric.L2, use_bf16=False)
@@ -957,7 +904,7 @@ def phase_packed_edges(torch, dev, q, m, packed, codes):
         ks, ki = pk.packed_scan_topk(**a)
         require(bool((ki < limit).all()), f"packed edge segments {kind}: ids past limit")
         rs, ri = pk.packed_scan_topk_plain(**{**a, "k": 11})
-        check_topk_f32(torch, ks, ki, rs, ri, 10, packed_tol(torch, a),
+        check_topk_f32(torch, ks, ki, rs, ri, 10, packed_tol(a),
                        f"packed edge segments ln (40, 21, 9, 7) {kind} limit={limit}")
     hits = total = 0
     cases = []
@@ -987,11 +934,13 @@ def phase_packed_kernels(torch, dev, results, n=100_000, d=1024, nq=256):
     and lloyd (perdim + values), RaBitQ B=2 (shared) and B=6 (values), each
     in L2 / IP / NIP at k=10 and 100 with prune off and on; edge cases."""
     from vq_tpu_torch import Metric
+    from vq_tpu_torch.bench import corpora
+    from vq_tpu_torch.bench.tolerance import packed_tol
     from vq_tpu_torch.kernels import packed_scan as pk
 
     t0 = time.perf_counter()
     pk.reset_launch_counts()
-    x, q, _ = packed_corpus(torch, n, d, nq, seed=11, dev=dev, lognormal=True)
+    x, q, _ = corpora.packed_corpus(n, d, nq, seed=11, device=dev, lognormal=True)
     norms = torch.linalg.norm(x, dim=1)
     configs = packed_configs(torch, x, q, norms)
     log(f"[phase 6] corpus N={n} (lognormal rows) D={d} Q={nq}; {len(configs)} configurations "
@@ -1007,7 +956,7 @@ def phase_packed_kernels(torch, dev, results, n=100_000, d=1024, nq=256):
                 a = args(metric, k, False, False)
                 ks, ki = pk.packed_scan_topk(**a)
                 rs, ri = pk.packed_scan_topk_plain(**{**a, "k": k + 1})
-                err, sep, _ = check_topk_f32(torch, ks, ki, rs, ri, k, packed_tol(torch, a),
+                err, sep, _ = check_topk_f32(torch, ks, ki, rs, ri, k, packed_tol(a),
                                              f"packed f32 {what}")
                 worst, n_sep = max(worst, err), n_sep + sep
                 ps_, pi, cnt = pk.packed_scan_topk(**args(metric, k, False, True))
@@ -1064,6 +1013,7 @@ def rankaware_ffd(torch, dev, x, q, norms, m, packed):
     layout equals the dense one's (both unpack to the same indices), and
     the kernel holds its plain version (f32, L2, k=10)."""
     from vq_tpu_torch import Metric
+    from vq_tpu_torch.bench.tolerance import packed_tol
     from vq_tpu_torch.core.ffd import ffd_layout
     from vq_tpu_torch.kernels import packed_scan as pk
     from vq_tpu_torch.methods import rankaware as ra
@@ -1077,7 +1027,7 @@ def rankaware_ffd(torch, dev, x, q, norms, m, packed):
     a = ra.packed_scan_args(mf.params, mf.bits, q, pf, 10, Metric.L2, use_bf16=False)
     ks, ki = pk.packed_scan_topk(**a)
     rs, ri = pk.packed_scan_topk_plain(**{**a, "k": 11})
-    err, n_sep, _ = check_topk_f32(torch, ks, ki, rs, ri, 10, packed_tol(torch, a),
+    err, n_sep, _ = check_topk_f32(torch, ks, ki, rs, ri, 10, packed_tol(a),
                                    "RankAware FFD f32 L2 k=10")
     log(f"[phase 6] RankAware FFD packing: {codes.shape[1]} code bytes/row (dense "
         f"{m.code_bytes_per_vector():.0f}); scan layout = dense's; kernel vs plain f32 L2 k=10 "
@@ -1114,12 +1064,13 @@ def phase_saq_main(torch, dev, n=1_048_576, d=1024, nq=256, profile=True):
     the power-law corpus at the Cohere MS MARCO width, then the banded
     prune corpus."""
     from vq_tpu_torch import Metric, SAQConfig, SearchConfig
+    from vq_tpu_torch.bench import corpora
     from vq_tpu_torch.index.flat import FlatQuantizedIndex
     from vq_tpu_torch.kernels import packed_scan as pk
     from vq_tpu_torch.kernels.adc import exact_topk
     from vq_tpu_torch.methods import saq as sq
 
-    (x, q, sigma), t_gen = wall_s(torch, lambda: packed_corpus(torch, n, d, nq, 0, dev))
+    (x, q, sigma), t_gen = wall_s(torch, lambda: corpora.packed_corpus(n, d, nq, 0, dev))
     log(f"[phase 7] corpus N={n} D={d} Q={nq} on {dev}: {t_gen:.3f} s "
         f"({x.numel() * 4 / 1e9:.2f} GB)")
     pk.reset_launch_counts()
@@ -1165,7 +1116,7 @@ def phase_saq_main(torch, dev, n=1_048_576, d=1024, nq=256, profile=True):
 
     # banded prune corpus (bench.py:316-368): lognormal row scale, norm-
     # ordered packing, queries from the lowest-norm band
-    x, _, sigma = packed_corpus(torch, n, d, nq, seed=1, dev=dev, lognormal=True)
+    x, _, sigma = corpora.packed_corpus(n, d, nq, seed=1, device=dev, lognormal=True)
     codes = saq.compress(x)
     cache = sq.prepare_packed(saq.plan, saq.params, codes, sort_rows=True)
     g = torch.Generator(device=dev).manual_seed(5)
@@ -1199,12 +1150,13 @@ def phase_saq_main(torch, dev, n=1_048_576, d=1024, nq=256, profile=True):
 def phase_rabitq_main(torch, dev, n=1_048_576, d=1024, nq=256):
     """bench.py:385-438 on the port: FlatQuantizedIndex(RaBitQ B=2), k=10."""
     from vq_tpu_torch import RaBitQConfig, SearchConfig
+    from vq_tpu_torch.bench import corpora
     from vq_tpu_torch.index.flat import FlatQuantizedIndex
     from vq_tpu_torch.kernels import packed_scan as pk
     from vq_tpu_torch.kernels.adc import exact_topk
     from vq_tpu_torch.methods.rabitq import RaBitQ
 
-    x, q, _ = packed_corpus(torch, n, d, nq, seed=2, dev=dev)
+    x, q, _ = corpora.packed_corpus(n, d, nq, seed=2, device=dev)
     pk.reset_launch_counts()
     rbq = RaBitQ(RaBitQConfig(num_bits=2))
     _, t_fit = wall_s(torch, lambda: rbq.fit(x))
@@ -1251,6 +1203,7 @@ def check_gather(torch, args, mask, k, what):
     """One f32 gather scan held against its plain version; returns the
     kernel's (scores, ids) and the largest score error.  Ids lie in
     masked-in tiles below the limit; no tile gives -inf with id 0."""
+    from vq_tpu_torch.bench.tolerance import packed_tol
     from vq_tpu_torch.kernels import packed_scan as pk
 
     a = {**args, "tile_mask": mask}
@@ -1262,18 +1215,19 @@ def check_gather(torch, args, mask, k, what):
     require(bool((mask[ki.long() // 512] != 0).all() and (ki < a["limit"]).all()),
             f"{what}: ids outside the masked-in rows")
     rs, ri = pk.packed_scan_topk_plain(**{**a, "k": k + 1})
-    err, _, _ = check_topk_f32(torch, ks, ki, rs, ri, k, packed_tol(torch, a), what)
+    err, _, _ = check_topk_f32(torch, ks, ki, rs, ri, k, packed_tol(a), what)
     return ks, ki, err
 
 
 def phase_gather_kernels(torch, dev, results, n=100_000, d=1024, nq=256):
     """The gather mode against its plain version (see the module docstring)."""
     from vq_tpu_torch import Metric
+    from vq_tpu_torch.bench import corpora
     from vq_tpu_torch.kernels import packed_scan as pk
 
     t0 = time.perf_counter()
     pk.reset_launch_counts()
-    x, q, _ = packed_corpus(torch, n, d, nq, seed=11, dev=dev, lognormal=True)
+    x, q, _ = corpora.packed_corpus(n, d, nq, seed=11, device=dev, lognormal=True)
     norms = torch.linalg.norm(x, dim=1)
     configs = packed_configs(torch, x, q, norms, tile_cache=True)
     nb = -(-n // 512)
@@ -1371,28 +1325,6 @@ def gather_table(torch, dev, saq, codes, norms, q, k=100):
 
 
 # ---------------------------------------------------------------- phase 10
-def fullrank_corpus(torch, n, d, nq, seed, dev, rank=None, csize=100, spread=1.0,
-                    block=65536):
-    """bench.py:441-475: planted neighbourhoods at full rank, rows
-    z·A with z = centre + spread·N(0, I), A (rank, D) with column scale
-    (1+i)^-0.5, unit-normalized; made block by block on the card."""
-    rank = rank or d
-    g = torch.Generator(device=dev).manual_seed(seed)
-    kc = n // csize
-    a = torch.randn((rank, d), generator=g, device=dev)
-    a = a * (1.0 + torch.arange(d, device=dev)) ** -0.5
-    cents = torch.randn((kc, rank), generator=g, device=dev)
-    x = torch.empty((n, d), device=dev)
-    for i0 in range(0, n, block):
-        rows = torch.arange(i0, min(n, i0 + block), device=dev)
-        xb = (cents[rows % kc] + spread * torch.randn((rows.shape[0], rank), generator=g,
-                                                      device=dev)) @ a
-        x[i0:i0 + rows.shape[0]] = xb / torch.linalg.norm(xb, dim=1, keepdim=True)
-    qdoc = torch.randint(0, kc, (nq,), generator=g, device=dev)
-    qv = (cents[qdoc] + spread * torch.randn((nq, rank), generator=g, device=dev)) @ a
-    return x, qv / torch.linalg.norm(qv, dim=1, keepdim=True)
-
-
 def ivf_search(torch, index, q, nprobe, k, gt, what, phase="phase 10"):
     """One search setting: the result, its checks, QPS from
     ``sustained_search_s`` and the masked-in tile fraction."""
@@ -1419,6 +1351,7 @@ def phase_ivf_main(torch, dev, n=1_048_576, d=1536, nq=256, k_cl=4096, nprobes=(
     from vq_tpu_torch import IVFConfig, KMeansConfig, Metric, RaBitQConfig, SAQConfig
     from vq_tpu_torch import SearchConfig
     from vq_tpu_torch._device import bf16_supported
+    from vq_tpu_torch.bench import corpora
     from vq_tpu_torch.data.sampling import chunk_rows_for_bytes, host_sample_rows
     from vq_tpu_torch.index.ivf import chunked_assign, coarse_pass
     from vq_tpu_torch.index.ivf_packed import IvfPackedFlatIndex, tile_mask_from_probes
@@ -1430,7 +1363,7 @@ def phase_ivf_main(torch, dev, n=1_048_576, d=1536, nq=256, k_cl=4096, nprobes=(
     from vq_tpu_torch.methods.rabitq import RaBitQ
 
     k = 100
-    (x, q), t_gen = wall_s(torch, lambda: fullrank_corpus(torch, n, d, nq, seed=11, dev=dev))
+    (x, q), t_gen = wall_s(torch, lambda: corpora.fullrank(n, d, nq, seed=11, device=dev))
     (_, gt_i), t_gt = wall_s(torch, lambda: exact_topk(q, x, k))
     gt = gt_i.cpu().numpy()
     log(f"[phase 10] planted full-rank corpus N={n} D={d} Q={nq} on {dev}: {t_gen:.3f} s "
@@ -1528,7 +1461,7 @@ def phase_ivf_main(torch, dev, n=1_048_576, d=1536, nq=256, k_cl=4096, nprobes=(
     del rindex
     torch.cuda.empty_cache()
     return launches["packed_scan_topk_gather"], dict(x=x, q=q, gt=gt, cents=cents, asn=asn,
-                                                     maker=("fullrank_corpus", (n, d, nq, 11)),
+                                                     maker=("fullrank", (n, d, nq, 11)),
                                                      kmc=kmc, saq=saq, index=index)
 
 
@@ -1543,6 +1476,8 @@ def phase_quantizers(torch, dev, n=1_000_000, d=1536, nq=1024, n_ra=1_048_576, d
     launches of OPQ's and RankAware's searches."""
     from vq_tpu_torch import KMeansConfig, LVQConfig, Metric, OPQConfig, PQConfig
     from vq_tpu_torch import RankAwareConfig, SearchConfig, SQConfig
+    from vq_tpu_torch.bench import corpora
+    from vq_tpu_torch.bench.tolerance import f32_tol
     from vq_tpu_torch.data.sampling import host_sample_rows
     from vq_tpu_torch.index.flat import FlatQuantizedIndex
     from vq_tpu_torch.kernels import packed_scan as pk
@@ -1555,7 +1490,7 @@ def phase_quantizers(torch, dev, n=1_000_000, d=1536, nq=1024, n_ra=1_048_576, d
     from vq_tpu_torch.methods.sq import SQ
 
     launches = {}
-    x, q = powerlaw_corpus(torch, n, d, nq, seed=0, dev=dev)
+    x, q = corpora.powerlaw(n, d, nq, seed=0, device=dev)
     gt = exact_topk(q, x, 100)[1].cpu().numpy()
     km = KMeansConfig(iters=20)
     ps.reset_launch_counts()
@@ -1578,7 +1513,7 @@ def phase_quantizers(torch, dev, n=1_000_000, d=1536, nq=1024, n_ra=1_048_576, d
     sl = index.codes[:100_000].contiguous()
     ks, ki = ps.pq_scan_topk_fused(qr, sl, cb, 10, use_bf16=False)
     rs, ri = ps.pq_scan_topk_fused_plain(qr, sl, cb, 11, True, None, False)
-    err, n_sep, _ = check_topk_f32(torch, ks, ki, rs, ri, 10, f32_tol(torch, qr, cb),
+    err, n_sep, _ = check_topk_f32(torch, ks, ki, rs, ri, 10, f32_tol(qr, cb),
                                    "OPQ fused f32 (rotated queries, 100k rows)")
     pq = PQ(PQConfig(16, 8, km), seed=0)
     pindex = FlatQuantizedIndex(pq, SearchConfig(use_bf16=True)).fit(x)
@@ -1594,7 +1529,7 @@ def phase_quantizers(torch, dev, n=1_000_000, d=1536, nq=1024, n_ra=1_048_576, d
     del x, q, index, pindex, sample, qr, sl
     torch.cuda.empty_cache()
 
-    x, q, _ = packed_corpus(torch, n_ra, d_ra, nq_ra, 0, dev)
+    x, q, _ = corpora.packed_corpus(n_ra, d_ra, nq_ra, 0, dev)
     gt = exact_topk(q, x, 100)[1].cpu().numpy()
     pk.reset_launch_counts()
     ram = ra.RankAware(RankAwareConfig(bits_per_dim=2.0))
@@ -1764,6 +1699,8 @@ def same_where_separated(torch, index, q, a, b, what):
 
 def where_separated(torch, q, xh_sq_max, a, b, what):
     """``same_where_separated`` with max‖x̂‖² given."""
+    from vq_tpu_torch.bench.tolerance import F32_RTOL
+
     ids_a, s_a = a
     ids_b, s_b = b
     tol = F32_RTOL * (torch.sum(q * q, dim=1).cpu().numpy()[:, None] + 2.0 * xh_sq_max)
@@ -1933,24 +1870,16 @@ def max_sq_norm(torch, decode, ids) -> float:
 KERNELS = ("pq_scan_topk_fused", "pq_score_all", "packed_scan_topk", "packed_scan_topk_gather")
 
 
-def launch_counts() -> dict:
-    """The four kernels' launch counters, by kernel."""
-    from vq_tpu_torch.kernels import packed_scan as pk
-    from vq_tpu_torch.kernels import pq_scan as ps
-
-    return dict(zip(KERNELS, (ps.pq_scan_topk_fused.launches, ps.pq_score_all.launches,
-                              pk.packed_scan_topk.launches,
-                              pk.packed_scan_topk.gather_launches)))
-
-
 @contextlib.contextmanager
 def counting(path: dict):
     """Yields a dict that holds, when the block ends, the launches made in
     it by kernel; they are added to ``path``, the launches of the path the
     block drives (the launches of any other work stay out of it)."""
-    before, got = launch_counts(), {}
+    from vq_tpu_torch.kernels import kernel_launches
+
+    before, got = kernel_launches(), {}
     yield got
-    for name, n in launch_counts().items():
+    for name, n in kernel_launches().items():
         got[name] = n - before[name]
         path[name] = path.get(name, 0) + got[name]
 
@@ -2192,11 +2121,13 @@ def subset_kernel(torch, dev, results, n, d, nq, heads, k1s):
     order-preserving cache: f32 ids where separated, bf16 recall against
     the plain bf16 version; then kernel and plain times beside the bound."""
     from vq_tpu_torch import Metric, SAQConfig
+    from vq_tpu_torch.bench import corpora
+    from vq_tpu_torch.bench.tolerance import packed_tol
     from vq_tpu_torch.kernels import packed_scan as pk
     from vq_tpu_torch.methods import saq as sq
 
     t0 = time.perf_counter()
-    x, q, _ = packed_corpus(torch, n, d, nq, seed=11, dev=dev, lognormal=True)
+    x, q, _ = corpora.packed_corpus(n, d, nq, seed=11, device=dev, lognormal=True)
     norms = torch.linalg.norm(x, dim=1)
     m = sq.SAQ(SAQConfig(bits_per_dim=2.0)).fit(x)
     codes = m.compress(x)
@@ -2220,7 +2151,7 @@ def subset_kernel(torch, dev, results, n, d, nq, heads, k1s):
                             f"{what}: the subset's factor columns")
                     ks, ki = pk.packed_scan_topk(**a)
                     rs, ri = pk.packed_scan_topk_plain(**{**a, "k": k1 + 1})
-                    err, sep, _ = check_topk_f32(torch, ks, ki, rs, ri, k1, packed_tol(torch, a),
+                    err, sep, _ = check_topk_f32(torch, ks, ki, rs, ri, k1, packed_tol(a),
                                                  f"packed f32 {what}")
                     worst, n_sep, combos = max(worst, err), n_sep + sep, combos + 1
                     ab = {**a, "use_bf16": True}
@@ -2815,6 +2746,34 @@ def call_shape(name, a) -> str:
             f"{'bf16' if a['use_bf16'] else 'f32'}")
 
 
+PLAIN_ROWS = 1 << 20  # rows one plain PQ call decodes at most
+
+
+def pq_fused_plain(torch, q, codes, cb, k, l2, limit, bf16):
+    """``pq_scan_topk_fused_plain`` over blocks of ``PLAIN_ROWS`` rows, each
+    block's top-k folded into a running one (ties by id ascending, empty
+    slots −inf with id 0, as in one call), so that a corpus too large to
+    decode at once (phase 18's 53M rows) is held to its plain version too;
+    one call where the corpus fits."""
+    from vq_tpu_torch.kernels import pq_scan as ps
+    from vq_tpu_torch.kernels.topk import ordered_topk
+
+    n = codes.shape[0]
+    if n <= PLAIN_ROWS:
+        return ps.pq_scan_topk_fused_plain(q, codes, cb, k, l2, limit, bf16)
+    lim = n if limit is None else max(0, min(n, int(limit)))
+    best = None
+    for r0 in range(0, max(lim, 1), PLAIN_ROWS):
+        s, i = ps.pq_scan_topk_fused_plain(q, codes[r0:r0 + PLAIN_ROWS], cb, k, l2,
+                                           lim - r0, bf16)
+        i = i.long() + r0
+        if best is not None:
+            s, i = torch.cat([best[0], s], 1), torch.cat([best[1].long(), i], 1)
+        best = ordered_topk(s, k, i)
+    s, i = best
+    return s, torch.where(s > float("-inf"), i, torch.zeros_like(i))
+
+
 def check_call(torch, name, a, what) -> float:
     """One recorded wrapper call again, held against its plain version on
     the same inputs as phases 3, 6 and 9 hold the kernels: in f32, scores
@@ -2822,6 +2781,7 @@ def check_call(torch, name, a, what) -> float:
     PQ scores within the tolerance of the plain bf16 version's, packed
     recall@k ≥ BF16_MIN_RECALL against it.  Returns the largest f32 score
     error."""
+    from vq_tpu_torch.bench.tolerance import f32_tol, packed_tol
     from vq_tpu_torch.kernels import packed_scan as pk
     from vq_tpu_torch.kernels import pq_scan as ps
 
@@ -2830,21 +2790,21 @@ def check_call(torch, name, a, what) -> float:
 
     if name == "pq_score_all":
         q, codes, cb = a["queries"], a["codes"], a["codebooks"]
-        tol = f32_tol(torch, q.float(), cb)
+        tol = f32_tol(q.float(), cb)
         return max(check_scores(torch, ps.pq_score_all(**{**a, "use_bf16": bf16}),
                                 ps.pq_score_all_plain(q, codes, cb, a["l2"], bf16), tol,
                                 f"{what} {'bf16' if bf16 else 'f32'}")
                    for bf16 in {False, a["use_bf16"]})
     if name == "pq_scan_topk_fused":
         q, codes, cb, k = a["queries"], a["codes"], a["codebooks"], a["k"]
-        tol = f32_tol(torch, q.float(), cb)
+        tol = f32_tol(q.float(), cb)
         ks, ki = ps.pq_scan_topk_fused(**{**a, "use_bf16": False})
-        rs, ri = ps.pq_scan_topk_fused_plain(q, codes, cb, k + 1, a["l2"], a["limit"], False)
+        rs, ri = pq_fused_plain(torch, q, codes, cb, k + 1, a["l2"], a["limit"], False)
         err = check_topk_f32(torch, floor(ks), ki, floor(rs), ri, k, tol, f"{what} f32")[0]
         if a["use_bf16"]:
             bs = ps.pq_scan_topk_fused(**a)[0]
-            check_scores(torch, floor(bs), floor(ps.pq_scan_topk_fused_plain(**a)[0]), tol,
-                         f"{what} bf16")
+            bp = pq_fused_plain(torch, q, codes, cb, k, a["l2"], a["limit"], True)[0]
+            check_scores(torch, floor(bs), floor(bp), tol, f"{what} bf16")
         return err
     k, mask = a["k"], a["tile_mask"]
     lim = min(a["factors"].shape[1], a["limit"] or a["factors"].shape[1])
@@ -2856,7 +2816,7 @@ def check_call(torch, name, a, what) -> float:
     if mask is not None:
         require(bool(((mask[ki.long() // 512] != 0) | ~reach).all()),
                 f"{what}: ids outside the masked-in tiles")
-    err = check_topk_f32(torch, floor(ks), ki, floor(rs), ri, k, packed_tol(torch, af),
+    err = check_topk_f32(torch, floor(ks), ki, floor(rs), ri, k, packed_tol(af),
                          f"{what} f32")[0]
     if a["use_bf16"]:
         ki, pi = pk.packed_scan_topk(**a)[1].cpu(), pk.packed_scan_topk_plain(**a)[1].cpu()
@@ -3015,6 +2975,179 @@ def phase_harness(torch, dev, results=None, n=1_000_000, d=1536, nq=1024, n_gate
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"[phase 14] launches of the CLI steps: {path}; the phase took "
         f"{time.perf_counter() - t0:.1f} s")
+    return path
+
+
+# ---------------------------------------------------------------- phase 17
+@contextlib.contextmanager
+def uncounted(module, name: str, away: dict, calls=None):
+    """Within the block, ``module.name`` (a function) adds the kernel
+    launches it makes to ``away``, to be taken out of the path that runs
+    it (launches that compare a kernel with its plain version), and drops
+    the wrapper calls it made from ``calls`` (a ``recording`` list)."""
+    from vq_tpu_torch.kernels import kernel_launches
+
+    real = getattr(module, name)
+
+    def run(*args, **kwargs):
+        before, made = kernel_launches(), len(calls) if calls is not None else 0
+        try:
+            return real(*args, **kwargs)
+        finally:
+            for kernel, n in kernel_launches().items():
+                away[kernel] = away.get(kernel, 0) + n - before[kernel]
+            if calls is not None:
+                del calls[made:]
+
+    setattr(module, name, run)
+    try:
+        yield away
+    finally:
+        setattr(module, name, real)
+
+
+# one field of each section of the headline record (bench.py's names)
+HEADLINE_FIELDS = ("value", "recall_gate_pq192", "assert_ok", "saq_packed_qps",
+                   "saq_prune_total_comp_cnt", "rabitq_packed_qps", "ivf_coarse_s",
+                   "ivf_saq_bpd2_np200_recall100", "ivf_pq_m192_np50_qps",
+                   "flat_saq_bpd2_qps", "ivfpk_bs256_np200_g16_qps")
+
+
+def phase_headline(torch, dev, tmp, results, argv=("--fast",)):
+    """The headline benchmark (``python -m vq_tpu_torch.bench.headline``,
+    bench.py on the port) in ``--fast`` form, in this process: exit code 0,
+    no section in ``errors``, every section's fields, ``assert_ok`` and
+    ``assert_compiled``, the PQ-192 gate at or above its floor.  The
+    launches of its exactness assert (kernels against their plain
+    versions) stay out of the path's count; every other kernel call it
+    makes is recorded and each distinct call shape held against its plain
+    version after the run (``check_calls``, its f32 errors joining
+    ``results``)."""
+    from vq_tpu_torch.bench import headline
+
+    out = os.path.join(tmp, "headline.json")
+    path, away, calls = {}, {}, []
+    t0 = time.perf_counter()
+    with uncounted(headline, "exactness_assert", away, calls), counting(path) as got, \
+            recording(calls):
+        rc = headline.main([*argv, "--out", out, "--device", str(dev)])
+    t_run = time.perf_counter() - t0
+    for kernel, n in away.items():
+        path[kernel] -= n
+        got[kernel] -= n
+    with open(out) as f:
+        rec = json.load(f)
+    log(f"[phase 17] headline {' '.join(argv)}: exit {rc}, {len(rec)} fields, "
+        f"{t_run:.3f} s; errors {rec['errors']}; launches {path} (the "
+        f"exactness assert's {away} apart)")
+    for name in sorted(rec):
+        log(f"[phase 17]   {name} = {rec[name]}")
+    require(rc == 0 and not rec["errors"], f"the headline failed: exit {rc}, {rec['errors']}")
+    require(rec["assert_ok"] and rec["assert_compiled"] == (dev.type == "cuda"),
+            "the headline's exactness assert")
+    require(rec["recall_gate_pq192"] >= RECALL_GATE_PQ192_FLOOR, "the headline's PQ-192 gate")
+    require(all(k in rec for k in HEADLINE_FIELDS), "a headline section left no fields")
+    require_launched({k: path[k] for k in ("pq_scan_topk_fused", "packed_scan_topk",
+                                            "packed_scan_topk_gather")},
+                     "a kernel of the headline never launched")
+    t0 = time.perf_counter()
+    line = check_calls(torch, calls, got, results, "phase 17 headline")
+    log(f"[phase 17] the headline's kernel calls against plain "
+        f"({time.perf_counter() - t0:.3f} s): {line}")
+    return path
+
+
+# ---------------------------------------------------------------- phase 18
+def spread_queries(torch, scan53m, keep, n, chunk, per=16):
+    """Queries over the whole of a scan53m run's corpus: the run's first
+    ``per`` (jittered rows of the last chunk) and ``per`` rows each of the
+    first and the middle chunk (made again from their seeds), jittered by
+    0.05σ as the run's → (queries, their source rows' global ids)."""
+    from vq_tpu_torch._device import make_generator
+
+    sigma = keep["sigma"]
+    qs, srcs = [keep["queries"][:per]], [keep["sources"][:per].long()]
+    g = make_generator(3, sigma.device)
+    for i0 in (0, n // chunk // 2 * chunk):
+        x = scan53m.gen_chunk(i0, min(chunk, n - i0), sigma)
+        qi = torch.randint(0, x.shape[0], (per,), generator=g, device=sigma.device)
+        qs.append(x[qi] + 0.05 * sigma * torch.randn((per, x.shape[1]), generator=g,
+                                                     device=sigma.device))
+        srcs.append(qi + i0)
+        del x
+    return torch.cat(qs), torch.cat(srcs)
+
+
+def phase_53m(torch, dev, results, n_pq=53_000_000, n_saq=53_000_000, chunk=131_072):
+    """The 53M-row envelope (``python -m vq_tpu_torch.bench.scan53m``,
+    scripts/scan53m.py on the port): PQ M=16 over N=53,000,000 rows (codes
+    resident, the fused kernel at Q=1024) and SAQ bpd=1 (the packed cache
+    filled in place, the dense packed kernel at Q=256), D=1024, made on the
+    card in 131,072-row chunks; top-1 source recovery ≥ 0.95 each, the
+    peak device memory logged.  Then, outside the path's count, each run's
+    index is searched again with 48 queries from its first, middle and
+    last chunks (``spread_queries``): top-1 source recovery ≥ 0.95 there
+    too, and the kernel call of that search held against its plain version
+    over all N rows (``check_calls``: f32 ids equal where separated,
+    bf16 as searched — PQ scores within the tolerance, packed recall ≥
+    BF16_MIN_RECALL), so that a fault past some row count or chunk shows."""
+    from vq_tpu_torch.bench import scan53m
+
+    path = {}
+    for method, n, nq, fn, kernel in (("pq", n_pq, 1024, scan53m.run_pq, "pq_scan_topk_fused"),
+                                      ("saq", n_saq, 256, scan53m.run_saq, "packed_scan_topk")):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        keep = {}
+        with counting(path) as got:
+            rec, t = wall_s(torch, lambda: fn(n, nq, dev, chunk, keep=keep))
+        rec["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
+        log(f"[phase 18] scan53m --method {method} --n {n} ({t:.3f} s, launches {got}): "
+            f"{json.dumps(rec)}")
+        require(rec["top1_source_recovery"] >= scan53m.SELF_RECALL_FLOOR,
+                f"53M {method}: top-1 source recovery {rec['top1_source_recovery']}")
+        require_launched({kernel: got[kernel]}, f"53M {method} never launched {kernel}")
+        t0 = time.perf_counter()
+        q, src = spread_queries(torch, scan53m, keep, n, chunk)
+        calls = []
+        with counting({}) as held, recording(calls):
+            ids = keep["search"](q)[1]
+        top1 = scan53m.top1_recovery(ids, src)
+        line = check_calls(torch, calls, held, results, f"phase 18 {method}")
+        log(f"[phase 18] {method}: {q.shape[0]} queries from the first, middle and last "
+            f"chunks, top-1 source recovery {top1}; against plain over all {n} rows "
+            f"({time.perf_counter() - t0:.3f} s): {line}")
+        require(top1 >= scan53m.SELF_RECALL_FLOOR,
+                f"53M {method}: top-1 source recovery {top1} on queries over the corpus")
+        del keep, calls, q, src, ids
+    torch.cuda.empty_cache()
+    return path
+
+
+# ---------------------------------------------------------------- phase 19
+def phase_entry(torch, dev):
+    """``vq_tpu_torch.entry.entry()`` (``__graft_entry__.entry()`` on the
+    port) once on the card: its arrays on the card, one fused-kernel
+    launch, the result held to the plain bf16 version (scores within the
+    f32 tolerance, ids where separated)."""
+    from vq_tpu_torch._device import bf16_supported
+    from vq_tpu_torch.bench.tolerance import f32_tol, topk_agreement
+    from vq_tpu_torch.entry import entry
+    from vq_tpu_torch.kernels import pq_scan as ps
+
+    fn, (q, codes, cb) = entry()
+    require(all(t.device == dev for t in (q, codes, cb)), "entry()'s arrays are not on the card")
+    path = {}
+    with counting(path):
+        dist, ids = fn(q, codes, cb)
+    require_launches(path["pq_scan_topk_fused"], 1, "entry()")
+    # bf16 as the search ran it (on a card; the CPU rehearsal computes in f32)
+    rs, ri = ps.pq_scan_topk_fused_plain(q, codes, cb, 11, True, None, bf16_supported(dev))
+    r = topk_agreement(torch.sum(q * q, dim=1, keepdim=True) - dist, ids, rs, ri, 10,
+                       f32_tol(q, cb))
+    log(f"[phase 19] entry(): ids {tuple(ids.shape)}, max_abs_err vs plain bf16 {r['err']:.3e}, "
+        f"{r['separated']}/{q.shape[0]} queries separated at k, ids equal there: {r['sets']}")
+    require(r["scores"] and r["sets"] and r["order"], "entry() disagrees with the plain version")
     return path
 
 
@@ -3300,10 +3433,10 @@ def main() -> int:
     phase_decode_edges(torch, dev)
     phase_kernels(torch, dev, results)
     phase_packed_kernels(torch, dev, results)
-    # each path's launches, its counters read just after it: phases 4-14
+    # each path's launches, its counters read just after it: phases 4-19
     # each require their kernels to launch, the kernels line counts phase
-    # 14's (the harness's CLI steps, the newest path) and lists every
-    # path's beside it
+    # 14's (the harness's CLI steps, which run all four kernels) and lists
+    # every path's beside it
     paths = {}
     paths["phase 4 PQ flat"], pq_ctx = phase_main(torch, dev)
     phase_gate(torch, dev)
@@ -3324,6 +3457,10 @@ def main() -> int:
         spec = ranks_spec(torch, ranks_dir, pq_ctx, saq_ctx, ivf_ctx)
         del pq_ctx, saq_ctx, ivf_ctx
         torch.cuda.empty_cache()
+        # phases 17-19 run here, after the earlier phases' corpora are freed
+        paths["phase 17 headline"] = phase_headline(torch, dev, ranks_dir, results)
+        paths["phase 18 53M envelope"] = phase_53m(torch, dev, results)
+        paths["phase 19 entry"] = phase_entry(torch, dev)
         paths["phase 14 harness CLI"] = phase_harness(torch, dev, results)
         # phase 16, last: its ranks are processes of their own
         paths.update(phase_ranks(torch, dev, spec))

@@ -118,6 +118,7 @@ def main() -> int:
         return 2
     import chip_smoke as cs
     from vq_tpu_torch import Metric, SAQConfig
+    from vq_tpu_torch.bench import corpora
     from vq_tpu_torch.methods import saq as sq
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -125,7 +126,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     with tempfile.TemporaryDirectory() as tmp:
         read = build_counted(Path(tmp))
-        x, q, _ = cs.packed_corpus(torch, 100_000, 1024, 256, seed=11, dev=dev, lognormal=True)
+        x, q, _ = corpora.packed_corpus(100_000, 1024, 256, seed=11, device=dev, lognormal=True)
         for tag, args, _, _, _ in cs.packed_configs(torch, x, q, torch.linalg.norm(x, dim=1)):
             for k in (10, 100):
                 for bf16 in (True, False):
@@ -133,7 +134,7 @@ def main() -> int:
                            args(Metric.L2, k, bf16, False))
         del x, q
         if "--big" in sys.argv:
-            x, q, _ = cs.packed_corpus(torch, 1_048_576, 1024, 256, 0, dev)
+            x, q, _ = corpora.packed_corpus(1_048_576, 1024, 256, 0, dev)
             saq = sq.SAQ(SAQConfig(bits_per_dim=2.0, use_pca=True)).fit(x)
             codes, norms = saq.compress(x), torch.linalg.norm(x, dim=1)
             del x

@@ -18,6 +18,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as cs  # noqa: E402
+from vq_tpu_torch.bench import corpora  # noqa: E402
 from vq_tpu_torch.kernels import packed_scan as pk  # noqa: E402
 from vq_tpu_torch.kernels import pq_scan as ps  # noqa: E402
 
@@ -77,7 +78,7 @@ def test_phase_packed_kernels_rehearsal(cpu_smoke):
 def test_phase_packed_edges_rehearsal(cpu_smoke):
     """Phase 6's edge cases with enough queries for Q = 65 (bf16: Q = 1, 7,
     65, k = 1 and 128, N = 300, segment lengths 40, 21, 9 and 7)."""
-    x, q, _ = cs.packed_corpus(torch, 3000, 128, 70, seed=3, dev=cpu_smoke)
+    x, q, _ = corpora.packed_corpus(3000, 128, 70, seed=3, device=cpu_smoke)
     _, _, _, m, packed = cs.packed_configs(torch, x, q, torch.linalg.norm(x, dim=1))[0]
     cs.phase_packed_edges(torch, cpu_smoke, q, m, packed, m.compress(x))
 
@@ -360,3 +361,81 @@ def test_packed_bound_counts_the_factor_rows_a_call_reads():
     ms, by = cs.packed_bound(torch, a)
     want = 1024 * (4 * 64 / 16 + 2 * 4) + 8 * 65 * 4 + 8 * 10 * 8
     assert by == "bytes" and ms == pytest.approx(want / 3.35e12 * 1e3)
+
+
+def test_phases_headline_53m_and_entry_rehearsal(cpu_smoke, monkeypatch, tmp_path):
+    """Phase 17 (the headline at --smoke sizes, its exactness assert's
+    launches kept apart, its other wrapper calls held to plain), phase 18
+    (scan53m both ways at N=5,000 in 2,048-row chunks, queries over the
+    whole corpus held to plain) and phase 19 (entry() on the CPU)."""
+    from vq_tpu_torch import entry as entry_mod
+
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a, **k: None)
+    results = {}
+    assert cs.phase_headline(torch, cpu_smoke, str(tmp_path), results, argv=("--smoke",)) == \
+        dict.fromkeys(cs.KERNELS, 0)
+    # the calls held to plain (on the CPU, adc's PQ scan takes its plain
+    # route and calls no kernel wrapper)
+    assert set(results) == {"packed_scan_topk", "packed_scan_topk_gather"}
+    results = {}
+    assert cs.phase_53m(torch, cpu_smoke, results, n_pq=5000, n_saq=5000, chunk=2048) == \
+        dict.fromkeys(cs.KERNELS, 0)
+    assert set(results) == {"packed_scan_topk"}
+    real = entry_mod.entry
+    monkeypatch.setattr(entry_mod, "entry", lambda device=None: real("cpu"))
+    assert cs.phase_entry(torch, cpu_smoke) == dict.fromkeys(cs.KERNELS, 0)
+
+
+def test_uncounted_takes_a_functions_launches_out_of_its_path():
+    """Launches inside the wrapped function go to ``away`` (and still into
+    the enclosing count, from which phase 17 subtracts them); the module's
+    function is restored after the block."""
+    import types
+
+    mod = types.SimpleNamespace()
+
+    def launch(n):
+        ps.pq_score_all.launches += n
+        return n
+
+    mod.f = launch
+    path, away = {}, {}
+    with cs.uncounted(mod, "f", away), cs.counting(path):
+        mod.f(3)
+        ps.pq_score_all.launches += 2  # a launch of the path itself
+    assert mod.f is launch
+    assert away["pq_score_all"] == 3 and path["pq_score_all"] == 5
+
+
+def test_uncounted_drops_the_functions_recorded_calls():
+    import types
+
+    mod, calls = types.SimpleNamespace(), []
+    mod.f = lambda: calls.extend(["assert's", "assert's"])
+    with cs.uncounted(mod, "f", {}, calls):
+        calls.append("path's")
+        mod.f()
+        calls.append("path's, after")
+    assert calls == ["path's", "path's, after"]
+
+
+@pytest.mark.parametrize("limit", [None, 3500, 2000, 5])
+def test_pq_fused_plain_in_blocks_is_one_plain_call(monkeypatch, limit):
+    """Over blocks of PLAIN_ROWS rows (phase 18's 53M rows), the plain PQ
+    scan's top-k equals one call's, ties (repeated codes) by id ascending
+    and empty slots -inf with id 0 included; so check_call holds such a
+    call in blocks."""
+    g = torch.Generator().manual_seed(4)
+    q = torch.randn((5, 16), generator=g)
+    cb = torch.randn((4, 16, 4), generator=g)
+    codes = torch.randint(0, 16, (5000, 4), generator=g, dtype=torch.uint8)
+    codes[4000:] = codes[:1000]  # each score of rows 4000.. ties an earlier row's
+    want = ps.pq_scan_topk_fused_plain(q, codes, cb, 11, True, limit, False)
+    monkeypatch.setattr(cs, "PLAIN_ROWS", 1000)
+    got = cs.pq_fused_plain(torch, q, codes, cb, 11, True, limit, False)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1].int(), want[1].int())
+    a = dict(queries=q, codes=codes, codebooks=cb, k=10, l2=True, limit=limit,
+             use_bf16=False)
+    assert cs.check_call(torch, "pq_scan_topk_fused", a, "blocks") == 0.0

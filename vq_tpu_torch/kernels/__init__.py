@@ -26,3 +26,15 @@ __all__ = [
     "scan_generic_topk",
     "exact_topk",
 ]
+
+
+def kernel_launches() -> dict:
+    """The four hand-written kernels' launch counters (``pq_scan``,
+    ``packed_scan``), by kernel; not a re-export of the JAX package."""
+    from vq_tpu_torch.kernels import packed_scan as pk
+    from vq_tpu_torch.kernels import pq_scan as ps
+
+    return {"pq_scan_topk_fused": ps.pq_scan_topk_fused.launches,
+            "pq_score_all": ps.pq_score_all.launches,
+            "packed_scan_topk": pk.packed_scan_topk.launches,
+            "packed_scan_topk_gather": pk.packed_scan_topk.gather_launches}
