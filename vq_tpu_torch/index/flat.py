@@ -19,6 +19,7 @@ from vq_tpu_torch.core.config import SearchConfig
 from vq_tpu_torch._device import as_f32
 from vq_tpu_torch.index.base import BaseSearchIndex, nbytes_of
 from vq_tpu_torch.methods.base import BaseQuantizer, tree_leaves
+from vq_tpu_torch.utils.trace import span
 
 
 class FlatQuantizedIndex(BaseSearchIndex):
@@ -52,12 +53,14 @@ class FlatQuantizedIndex(BaseSearchIndex):
 
     def search_with_scores(self, queries, k: int = 10) -> Tuple[np.ndarray, np.ndarray]:
         """(nq, D) → ((nq, k) uint32 ids, (nq, k) scores) as numpy."""
-        scores, idx = self.quantizer.scan_topk(
-            as_f32(queries, self.device), self.codes, k, self.search_cfg.metric,
-            norms=self.norms, tile_rows=self.search_cfg.tile_rows,
-            use_bf16=self.search_cfg.use_bf16, approx=self.search_cfg.approx,
-            cache=self._scan_cache)
-        return idx.cpu().numpy().astype(np.uint32), scores.cpu().numpy()
+        with span("search"):
+            scores, idx = self.quantizer.scan_topk(
+                as_f32(queries, self.device), self.codes, k, self.search_cfg.metric,
+                norms=self.norms, tile_rows=self.search_cfg.tile_rows,
+                use_bf16=self.search_cfg.use_bf16, approx=self.search_cfg.approx,
+                cache=self._scan_cache)
+            with span("search.fetch"):
+                return idx.cpu().numpy().astype(np.uint32), scores.cpu().numpy()
 
     def memory_footprint(self) -> int:
         params_b = sum(nbytes_of(p) for p in tree_leaves(self.quantizer.params))

@@ -47,6 +47,7 @@ from vq_tpu_torch.kernels.kmeans import pairwise_sqdist_xc
 from vq_tpu_torch.kernels.packed_scan import TILE, PackedCorpus
 from vq_tpu_torch.kernels.topk import ordered_topk
 from vq_tpu_torch.methods.base import BaseQuantizer, tree_leaves
+from vq_tpu_torch.utils.trace import span
 
 
 def tile_mask_from_probes(probes: torch.Tensor, cl_first: torch.Tensor,
@@ -162,13 +163,15 @@ class IvfPackedFlatIndex(BaseSearchIndex):
         """One tile mask from the probes of ``q`` and one gather-kernel pass
         → maximize-form (scores, scan positions, masked-in tiles as a device
         scalar)."""
-        k_cl = int(self.centroids.shape[0])
-        nb = -(-self.num_rows // TILE)
-        mask = tile_mask_from_probes(probe, self.cl_first, self.cl_last, k_cl)
+        with span("ivf.mask"):
+            k_cl = int(self.centroids.shape[0])
+            nb = -(-self.num_rows // TILE)
+            mask = tile_mask_from_probes(probe, self.cl_first, self.cl_last, k_cl)
+            cap = default_mask_cap(nb, nprobe, self.num_rows, k_cl)
         s, pos = self.quantizer.packed_scan_raw(
             q, self.cache, k, self.search_cfg.metric,
             use_bf16=self.search_cfg.use_bf16 and bf16_supported(q.device),
-            tile_mask=mask, mask_cap=default_mask_cap(nb, nprobe, self.num_rows, k_cl))
+            tile_mask=mask, mask_cap=cap)
         return s, pos, mask.sum()
 
     def _search(self, q: torch.Tensor, k: int, nprobe: int, groups: int = 1):
@@ -176,7 +179,8 @@ class IvfPackedFlatIndex(BaseSearchIndex):
         metric's form, row ids (Q, k), masked-in tiles summed over the
         ``groups`` probe-coherent groups as a device scalar).  Q must be a
         multiple of ``groups``."""
-        _, probe = ordered_topk(-pairwise_sqdist_xc(q, self.centroids), nprobe)
+        with span("ivf.route"):
+            _, probe = ordered_topk(-pairwise_sqdist_xc(q, self.centroids), nprobe)
         if groups > 1:
             # sort the batch by nearest cell, so each group's probes cohere;
             # a stable sort, as jnp.argsort: ties decide a query's group
@@ -189,8 +193,9 @@ class IvfPackedFlatIndex(BaseSearchIndex):
             tiles = torch.stack([p[2] for p in parts]).sum()
         else:
             s, pos, tiles = self._scan_group(q, probe, k, nprobe)
-        gid = self.ids_sorted[torch.clamp(pos.long(), 0, self.ids_sorted.shape[0] - 1)]
-        scores, ids = _finalize(s, gid, self.search_cfg.metric, torch.sum(q * q, dim=-1))
+        with span("ivf.finalize"):
+            gid = self.ids_sorted[torch.clamp(pos.long(), 0, self.ids_sorted.shape[0] - 1)]
+            scores, ids = _finalize(s, gid, self.search_cfg.metric, torch.sum(q * q, dim=-1))
         return scores, ids, tiles
 
     def search_with_scores(self, queries, k: int = 10, query_groups: Optional[int] = None
@@ -198,11 +203,13 @@ class IvfPackedFlatIndex(BaseSearchIndex):
         """(nq, D) → ((nq, k) uint32 ids, (nq, k) scores) as numpy.
         ``query_groups`` = G > 1 runs G probe-coherent groups (module
         docstring); None takes the index's default."""
-        q, ng, nq = self._grouped(queries, query_groups)
-        scores, ids, tiles = self._search(q, k, self._nprobe(), ng)
-        self._last_tiles = tiles  # synced only when last_tiles_scanned is read
-        ids = ids[:nq].cpu().numpy()
-        return np.where(ids < 0, 0, ids).astype(np.uint32), scores[:nq].cpu().numpy()
+        with span("search"):
+            q, ng, nq = self._grouped(queries, query_groups)
+            scores, ids, tiles = self._search(q, k, self._nprobe(), ng)
+            self._last_tiles = tiles  # synced only when last_tiles_scanned is read
+            with span("search.fetch"):
+                ids = ids[:nq].cpu().numpy()
+                return np.where(ids < 0, 0, ids).astype(np.uint32), scores[:nq].cpu().numpy()
 
     def sustained_search_s(self, queries, k: int = 10, query_groups: Optional[int] = None,
                            reps: int = 5, outer: int = 3) -> float:

@@ -53,6 +53,7 @@ import torch
 
 from vq_tpu_torch._device import round_bf16
 from vq_tpu_torch.kernels.topk import ordered_topk
+from vq_tpu_torch.utils.trace import span
 
 TILE = 512  # rows per word-layout / prune tile
 MAX_K = 128
@@ -435,25 +436,26 @@ def packed_scan_topk(q_cat, qa, words, factors, lv_tables, segs, k: int,
     tile_mask (N/512,) integer or bool: scan only the tiles with a non-zero
             entry (the gather mode); mask_cap is accepted and ignored
     """
-    r2_cols = tuple(int(c) for c in r2_cols)
-    dev = factors.device
-    if tile_mask is not None and tile_mask.device != dev:
-        raise ValueError(f"tile_mask on {tile_mask.device}, factors on {dev}")
-    if dev.type == "cpu":
-        return packed_scan_topk_plain(q_cat, qa, words, factors, lv_tables, segs, k, family,
-                                      metric_kind, norm_col, r2_cols, limit, use_bf16, prune,
-                                      tile_stats, qprune, tile_mask, mask_cap)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    _check_inputs(q_cat, qa, words, factors, lv_tables, segs, k, metric_kind, family,
-                  norm_col, r2_cols, prune, tile_stats, qprune, tile_mask)
-    # the CUDA runtime launches (and answers occupancy queries) on the
-    # current device: the mask compaction, the scan and the merge run under
-    # the tensors' own
-    with torch.cuda.device(dev):
-        return _launch(q_cat, qa, words, factors, lv_tables, segs, k, family, metric_kind,
-                       norm_col, r2_cols, limit, use_bf16, prune, tile_stats, qprune,
-                       tile_mask)
+    with span("packed.scan"):
+        r2_cols = tuple(int(c) for c in r2_cols)
+        dev = factors.device
+        if tile_mask is not None and tile_mask.device != dev:
+            raise ValueError(f"tile_mask on {tile_mask.device}, factors on {dev}")
+        if dev.type == "cpu":
+            return packed_scan_topk_plain(q_cat, qa, words, factors, lv_tables, segs, k, family,
+                                          metric_kind, norm_col, r2_cols, limit, use_bf16, prune,
+                                          tile_stats, qprune, tile_mask, mask_cap)
+        if dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        _check_inputs(q_cat, qa, words, factors, lv_tables, segs, k, metric_kind, family,
+                      norm_col, r2_cols, prune, tile_stats, qprune, tile_mask)
+        # the CUDA runtime launches (and answers occupancy queries) on the
+        # current device: the mask compaction, the scan and the merge run under
+        # the tensors' own
+        with torch.cuda.device(dev):
+            return _launch(q_cat, qa, words, factors, lv_tables, segs, k, family, metric_kind,
+                           norm_col, r2_cols, limit, use_bf16, prune, tile_stats, qprune,
+                           tile_mask)
 
 
 def _launch(q_cat, qa, words, factors, lv_tables, segs, k, family, metric_kind, norm_col,

@@ -37,6 +37,7 @@ import torch
 from vq_tpu_torch._device import round_bf16
 from vq_tpu_torch.kernels.packed_scan import grid_chunks, merge_groups
 from vq_tpu_torch.kernels.topk import ordered_topk
+from vq_tpu_torch.utils.trace import span
 
 MAX_K = 128  # largest k of the fused kernel (the TPU kernel's _KPAD)
 # Largest subvector width the decode route takes (bf16 mode only): per
@@ -164,7 +165,7 @@ def _scan(queries, codes, codebooks, k: int, l2: bool, limit: Optional[int], use
     The CUDA runtime launches (and sets kernel attributes and answers
     occupancy queries) on the current device, so the whole call runs under
     the tensors' device."""
-    with torch.cuda.device(codes.device):
+    with span("pq.scan"), torch.cuda.device(codes.device):
         return _scan_on_device(queries, codes, codebooks, k, l2, limit, use_bf16, route)
 
 
