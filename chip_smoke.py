@@ -468,12 +468,17 @@ def phase_decode_edges(torch, dev):
     another order, so scores within the f32 tolerance): Q not a multiple of
     8 or 64, M=25 (the last 64-dim stage partly zero), K=100, N < 128,
     dsub=3 (codewords not 16-byte aligned), M=300 (codes read past the 256
-    a row tile stages); k = 1, 10, 128, limit < k.  Ids below the limit,
-    limit < k leaving -inf / id 0, the fused top-k = the top-k of the score
-    kernel's scores bit for bit, planted ties giving ids 0..k-1."""
+    a row tile stages); k = 1, 10, 128, limit < k.  Then Q at each
+    query-tile width of the route's two kernels and one past it (1 to 1024;
+    64 on mma.sync, 256 on wgmma) at N=3000 (not a multiple of the 128-row
+    tile), k = 1, 10, 100, 128 and a limit.  Ids below the limit, limit < k
+    leaving -inf / id 0, the fused top-k = the top-k of the score kernel's
+    scores bit for bit, planted ties giving ids 0..k-1, and every width
+    launched (``launches_by_width``)."""
     from vq_tpu_torch.bench.tolerance import f32_tol
     from vq_tpu_torch.kernels import pq_scan as ps
 
+    ps.reset_launch_counts()
     t0 = time.perf_counter()
     g = torch.Generator(device=dev).manual_seed(6)
     shapes = (("M=25 dsub=8 Q=65", 65, 3000, 25, 256, 8), ("K=100 Q=7", 7, 3000, 16, 100, 8),
@@ -507,9 +512,34 @@ def phase_decode_edges(torch, dev):
         for k in (6, 100):
             _, ti = pq_call(torch, "decode", q, same, cb, k)
             require(bool((ti == torch.arange(k, device=dev)).all()), f"decode tie order {what}")
+    n, m, kk, dsub = 3000, 24, 256, 8
+    codes = torch.randint(0, kk, (n, m), generator=g, device=dev).to(torch.uint8)
+    cb = torch.randn((m, kk, dsub), generator=g, device=dev)
+    qs = torch.randn((1024, m * dsub), generator=g, device=dev)
+    for nq in (1, 8, 15, 16, 17, 63, 64, 65, 127, 128, 129, 255, 256, 257, 1024):
+        q = qs[:nq]
+        tol = f32_tol(q, cb)
+        s = pq_call(torch, "decode", q, codes, cb)
+        worst = max(worst, check_scores(torch, s, ps.pq_score_all_plain(q, codes, cb, True, True),
+                                        tol, f"decode score_all Q={nq}"))
+        for k, limit in ((1, None), (10, None), (100, None), (128, None), (100, n - 1500)):
+            case = f"decode fused Q={nq} k={k} limit={limit}"
+            ks, ki = pq_call(torch, "decode", q, codes, cb, k, True, limit)
+            ts, ti = ps.topk_of_scores(s, k, limit)
+            require(torch.equal(ks, ts) and torch.equal(ki, ti),
+                    f"{case}: top-k differs from the score kernel's top-k")
+            require(bool((ki < (limit or n)).all()), f"{case}: ids past limit")
+            rs, _ = ps.pq_scan_topk_fused_plain(q, codes, cb, k, True, limit, True)
+            worst = max(worst, check_scores(torch, ks, rs, tol, case))
+    widths = {"fused": dict(ps.pq_scan_topk_fused.launches_by_width),
+              "score_all": dict(ps.pq_score_all.launches_by_width)}
+    if codes.is_cuda:
+        require(all(set(w) == set(ps.DECODE_WIDTHS) for w in widths.values()),
+                f"decode edge cases did not launch every query-tile width: {widths}")
     torch.cuda.synchronize()
     log(f"[phase 3] decode-route edge cases ok, scores within the f32 tolerance of the plain "
-        f"bf16 version (max_abs_err={worst:.3e}; {time.perf_counter() - t0:.3f} s)")
+        f"bf16 version (max_abs_err={worst:.3e}; launches by query-tile width {widths}; "
+        f"{time.perf_counter() - t0:.3f} s)")
 
 
 def phase_kernels(torch, dev, results, n=100_000, d=1536, nq=1024):
@@ -841,10 +871,11 @@ def synthetic_packed(torch, dev, n, nq, seed):
 
 
 def sass_hmma(lib_path) -> dict:
-    """HMMA (tensor-core) instructions in the scan kernels of the built
-    library, from ``cuobjdump -sass``: {"bf16": n, "f32": n} of the packed
-    kernel's two instances, "pq decode score_all" / "pq decode fused" of the
-    PQ decode route's."""
+    """Tensor-core instructions (HMMA of mma.sync, HGMMA of wgmma) in the
+    scan kernels of the built library, from ``cuobjdump -sass``: {"bf16":
+    n, "f32": n} of the packed kernel's two instances, "pq decode
+    score_all" / "pq decode fused" of the PQ decode route's wgmma kernel,
+    "pq decode mma score_all" / "pq decode mma fused" of its mma.sync one."""
     from vq_tpu_torch.kernels._build import find_nvcc
 
     tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
@@ -855,9 +886,10 @@ def sass_hmma(lib_path) -> dict:
         name = sec.split("\n", 1)[0]
         if "packed_scan_kernel" in name:
             out["bf16" if "packed_scan_kernelILb1" in name else "f32"] = sec.count("HMMA")
-        elif "decode_scan_kernel" in name:
-            out["pq decode " + ("score_all" if "decode_scan_kernelILb1" in name
-                                else "fused")] = sec.count("HMMA")
+        elif "decode_scan_kernel" in name or "decode_mma_kernel" in name:
+            kind = "mma " if "decode_mma_kernel" in name else ""
+            out[f"pq decode {kind}" + ("score_all" if "_kernelILb1" in name else "fused")] = (
+                sec.count("HMMA") + sec.count("HGMMA"))
     return out
 
 
@@ -3423,9 +3455,11 @@ def main() -> int:
         elif "Used" in line or "spill" in line:
             log(f"[phase 2] ptxas {entry}: {line.strip()}")
     hmma = sass_hmma(lib_path)
-    log(f"[phase 2] HMMA instructions in the scan kernels' SASS (cuobjdump -sass): {hmma}")
+    log(f"[phase 2] tensor-core instructions (HMMA, HGMMA) in the scan kernels' SASS "
+        f"(cuobjdump -sass): {hmma}")
     require(hmma.get("bf16", 0) > 0, "the bf16 packed kernel does not reach the tensor cores")
-    require(hmma.get("pq decode score_all", 0) > 0 and hmma.get("pq decode fused", 0) > 0,
+    require(all(hmma.get(f"pq decode {kind}{f}", 0) > 0 for kind in ("", "mma ")
+                for f in ("score_all", "fused")),
             "the PQ decode route does not reach the tensor cores")
 
     results = {}

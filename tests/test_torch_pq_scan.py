@@ -126,13 +126,11 @@ def test_pq_route_decodes_only_bf16_at_small_dsub(dsub, use_bf16):
 
 class _Lib:
     """The library's layout constants and a table of resident blocks per SM
-    ({(decode, qb): blocks}; a launch missing from it cannot run)."""
+    ({(decode, qb): blocks}, qb the decode route's query-tile width or the
+    table route's queries a block; a launch missing from it cannot run)."""
 
     def __init__(self, per_sm):
         self.per_sm = per_sm
-
-    def vq_pq_decode_queries_per_block(self):
-        return 64
 
     def vq_pq_decode_tile_rows(self):
         return 128
@@ -146,8 +144,11 @@ class _Lib:
     def vq_merge_cap(self):
         return 4096
 
-    def vq_pq_blocks_per_sm(self, decode, qb, m, kk, k, score_all, vec16):
-        return self.per_sm.get((decode, qb), 0)
+    def vq_pq_table_blocks_per_sm(self, qb, m, kk, k, score_all, vec16):
+        return self.per_sm.get((0, qb), 0)
+
+    def vq_pq_decode_slots(self, qn, m, k, score_all, cluster):
+        return self.per_sm.get((1, qn), 0) * 132
 
 
 @pytest.mark.parametrize("fits,want", [({(0, 8): 1, (0, 4): 2, (0, 1): 3, (0, 0): 1}, 8),
@@ -157,8 +158,8 @@ class _Lib:
 def test_plan_table_route_keeps_as_many_tables_as_fit(fits, want):
     """8 queries' tables in shared memory where a block of them fits, else
     4, else 1, else one query's read from global memory (qb 0)."""
-    qb, _ = tps._plan(_Lib(fits), 132, "table", 16, 256, 10, 1024, 100_000, 1)
-    assert qb == want
+    qb, _, cluster = tps._plan(_Lib(fits), 132, "table", 16, 256, 10, 1024, 100_000, 1)
+    assert qb == want and cluster == 1
 
 
 def test_plan_raises_when_no_block_fits():
@@ -176,18 +177,71 @@ def test_plan_chunks_follow_the_reported_occupancy(route, num_q, k):
     whole waves up to one chunk column; one chunk when the query blocks
     alone fill the slots.  The score kernel (k = 0) merges nothing."""
     sms, per_sm, n = 132, 2, 100_000
-    lib = _Lib({(1, 0): per_sm, (0, 8): per_sm})
-    qb, chunks = tps._plan(lib, sms, route, 16, 256, k, num_q, n, 1)
-    rows, per_block = (128, 64) if route == "decode" else (512, 8)
-    assert qb == (64 if route == "decode" else 8)
+    lib = _Lib({**{(1, w): per_sm for w in tps.DECODE_WIDTHS}, (0, 8): per_sm})
+    qb, chunks, cluster = tps._plan(lib, sms, route, 16, 256, k, num_q, n, 1)
+    rows, per_block = (128, tps.decode_width(num_q)) if route == "decode" else (512, 8)
+    assert qb == per_block
     qblocks, slots = -(-num_q // per_block), sms * per_sm
+    assert qblocks % cluster == 0 and (cluster == 1 or qb == 256)
     assert 1 <= chunks <= -(-n // rows)
-    if qblocks >= slots:
-        assert chunks == 1
     if k:
         g = 4096 // k
         groups = tps.merge_groups(chunks, 4096, k)
         assert chunks * k <= 4096 or (chunks == groups * g and groups <= g)
+    if qblocks >= slots:
+        assert chunks == 1
     blocks = qblocks * chunks
     if blocks > slots and k == 0:  # short of whole waves by less than a chunk column
         assert -blocks % slots < qblocks
+
+
+@pytest.mark.parametrize("num_q,want", [(1, 64), (8, 64), (16, 64), (17, 64), (64, 64),
+                                        (65, 256), (128, 256), (129, 256), (256, 256),
+                                        (1024, 256), (20000, 256)])
+@pytest.mark.parametrize("k", [0, 10, 100])
+def test_plan_decode_width_is_the_narrowest_instance_covering_q(num_q, want, k):
+    """The decode route's query tile is the narrowest instance of
+    DECODE_WIDTHS covering min(Q, widest): the b8 cell's Q=8 the mma.sync
+    kernel's 64, Q=1024 four wgmma tiles of 256.  The library is asked for that
+    instance's resident blocks, on the wgmma kernel in clusters of the most
+    query tiles (4, else 2, else 1) dividing their count, and the chunks keep
+    the fused kernel's lists within the merge cap, each query block with at
+    least one and at most one row tile a chunk."""
+    asked = []
+
+    class Lib(_Lib):
+        def vq_pq_decode_slots(self, qn, m, k, score_all, cluster):
+            asked.append((qn, k, score_all, cluster))
+            return 132
+
+    n = 1_000_000
+    qb, chunks, cluster = tps._plan(Lib({}), 132, "decode", 192, 256, k, num_q, n, 0)
+    assert qb == want == tps.decode_width(num_q)
+    assert want in tps.DECODE_WIDTHS and want >= min(num_q, max(tps.DECODE_WIDTHS))
+    assert all(w < min(num_q, want) for w in tps.DECODE_WIDTHS if w < want)
+    qblocks = -(-num_q // want)
+    want_cluster = next(c for c in (4, 2, 1) if qblocks % c == 0) if want == 256 else 1
+    assert cluster == want_cluster and asked == [(want, k, int(k == 0), want_cluster)]
+    assert 1 <= chunks <= -(-n // 128)
+    if k:
+        g = 4096 // k
+        groups = tps.merge_groups(chunks, 4096, k)
+        assert chunks * k <= 4096 or (chunks == groups * g and groups <= g)
+
+
+def test_launch_counter_by_width_and_its_reset():
+    """Each launch counts once in ``launches``; a decode launch also under
+    its query-tile width in ``launches_by_width``, the table route's not;
+    ``reset_launch_counts`` clears both."""
+    tps.reset_launch_counts()
+    tps._count_launch(100, "decode", 256)
+    tps._count_launch(100, "decode", 256)
+    tps._count_launch(10, "decode", 64)
+    tps._count_launch(0, "decode", 64)
+    tps._count_launch(10, "table", 8)
+    assert tps.pq_scan_topk_fused.launches == 4 and tps.pq_score_all.launches == 1
+    assert tps.pq_scan_topk_fused.launches_by_width == {256: 2, 64: 1}
+    assert tps.pq_score_all.launches_by_width == {64: 1}
+    tps.reset_launch_counts()
+    assert tps.pq_scan_topk_fused.launches == tps.pq_score_all.launches == 0
+    assert tps.pq_scan_topk_fused.launches_by_width == tps.pq_score_all.launches_by_width == {}

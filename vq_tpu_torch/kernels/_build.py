@@ -98,13 +98,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "vq_merge_cap": [],
-    "vq_pq_decode_queries_per_block": [],
     "vq_pq_decode_tile_rows": [],
     "vq_pq_decode_stage_dims": [],
+    "vq_pq_decode_fold_slots": [_I],
     "vq_pq_table_step_rows": [],
     "vq_pq_table_group": [],
-    "vq_pq_blocks_per_sm": [_I] * 7,
-    "vq_pq_decode_scan": [_P] * 13 + [_I] * 9 + [_P],
+    "vq_pq_table_blocks_per_sm": [_I] * 6,
+    "vq_pq_decode_slots": [_I] * 5,
+    "vq_pq_decode_scan": [_P] * 15 + [_I] * 11 + [_P],
     "vq_pq_table_scan": [_P] * 10 + [_I] * 12 + [_P],
     "vq_packed_queries_per_block": [],
     "vq_packed_max_segments": [],

@@ -11,9 +11,10 @@ JAX functions' return contract:
 
 On a CUDA tensor each wrapper launches the hand-written kernels of
 ``csrc/pq_scan.cu`` or raises, for any M and K ≤ 256, by one of two routes
-that ``pq_route`` picks from the shapes: "decode" copies each row's bf16
-codewords into shared-memory tiles and multiplies them by 64 queries at a
-time on the tensor cores (the TPU kernel's design); "table" builds
+that ``pq_route`` picks from the shapes: "decode" gathers each row's bf16
+codewords into shared-memory tiles and multiplies them by a tile of 64
+queries (``mma.sync``) or 256 (Hopper's wgmma, in clusters of up to 4 query
+tiles sharing each row tile's gathers), ``decode_width``; "table" builds
 per-query lookup tables and sums M entries a row.  Within a route both
 wrappers sum in the same order, so the fused top-k is the top-k of
 ``pq_score_all``'s scores bit for bit.  On a CPU tensor a wrapper runs the
@@ -24,7 +25,8 @@ codebooks to bf16 and accumulates in f32, as the TPU kernel feeds its MXU;
 JAX functions (``tile``, ``interpret``, ``group``) have no counterpart: the
 CUDA kernels take any N, and grouped decode was a TPU MXU tuning knob.
 
-Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+Each wrapper counts its kernel launches in ``<wrapper>.launches``, and its
+decode-route launches by query-tile width in ``<wrapper>.launches_by_width``.
 """
 
 from __future__ import annotations
@@ -48,6 +50,10 @@ MAX_K = 128  # largest k of the fused kernel (the TPU kernel's _KPAD)
 # 32 and 96; at dsub 24 (M=64) four queries' tables no longer fit shared
 # memory, so the table route falls to one query a block and decode wins.
 DECODE_MAX_DSUB = 24
+# Query-tile widths of the decode route's kernels (csrc/pq_scan.cu): 64 on
+# mma.sync, 256 on wgmma; a row tile gathered once serves the block's whole
+# query tile.
+DECODE_WIDTHS = (64, 256)
 
 
 def pq_route(dsub: int, use_bf16: bool) -> str:
@@ -57,6 +63,17 @@ def pq_route(dsub: int, use_bf16: bool) -> str:
     on tables: TF32 products would break the f32 tolerance.  K does not
     enter: neither route's cost a (query, row, subspace) depends on it."""
     return "decode" if use_bf16 and dsub <= DECODE_MAX_DSUB else "table"
+
+
+def decode_width(num_q: int) -> int:
+    """The decode route's query-tile width for Q queries: the narrowest of
+    ``DECODE_WIDTHS`` that covers min(Q, widest).  Past the widest, Q splits
+    into tiles of the widest.  Measured (H100, N=1M, M=192; PERF.md): the
+    mma.sync kernel's 64-query tile is faster up to Q=64, where a block's
+    time is its gathers and the wgmma kernel's producer issues them alone;
+    past 64 the 256-query tile gathers each row once for 4x the queries."""
+    need = min(num_q, DECODE_WIDTHS[-1])
+    return next(w for w in DECODE_WIDTHS if w >= need)
 
 
 # ---------------------------------------------------------------- plain twins
@@ -133,29 +150,38 @@ def _check_inputs(queries, codes, codebooks, k: Optional[int] = None):
 
 
 def _plan(lib, sms: int, route: str, m: int, kk: int, k: int, num_q: int, n: int,
-          vec16: int) -> Tuple[int, int]:
-    """(queries a block, chunks) of a launch on ``sms`` SMs; k = 0 for
-    ``pq_score_all``.  The table route keeps 8, else 4, else 1 query's
-    tables in shared memory, the most for which the library reports a
-    resident block, else reads one query's from global memory (qb 0).
-    Chunks: ``grid_chunks`` at the resident blocks per SM that the library
-    reports; the score kernel has no merge, so no merge cap."""
+          vec16: int) -> Tuple[int, int, int]:
+    """(queries a block, chunks, query tiles a cluster) of a launch on
+    ``sms`` SMs; k = 0 for ``pq_score_all``.  The decode route takes the
+    query-tile width ``decode_width`` picks from Q and, on the wgmma kernel,
+    clusters of the most query tiles (4, else 2) that divide their count
+    and that the library can keep resident: they share each row tile's
+    gathers.  The table route keeps 8, else 4, else 1 query's tables in
+    shared memory, the most for which the library reports a resident block,
+    else reads one query's from global memory (qb 0).  Chunks:
+    ``grid_chunks`` at the resident blocks the library reports; the score
+    kernel has no merge, so no merge cap."""
+    cluster = 1
     if route == "decode":
-        qb, rows = lib.vq_pq_decode_queries_per_block(), lib.vq_pq_decode_tile_rows()
-        per_sm = lib.vq_pq_blocks_per_sm(1, 0, m, kk, k, int(k == 0), 0)
+        qb, rows = decode_width(num_q), lib.vq_pq_decode_tile_rows()
+        qblocks = -(-num_q // qb)
+        for cluster in (4, 2, 1) if qb == DECODE_WIDTHS[-1] else (1,):
+            if qblocks % cluster == 0:
+                slots = lib.vq_pq_decode_slots(qb, m, k, int(k == 0), cluster)
+                if slots > 0:
+                    break
         per_block = qb
     else:
         rows = lib.vq_pq_table_step_rows()
         for qb in (8, 4, 1, 0):
-            per_sm = lib.vq_pq_blocks_per_sm(0, qb, m, kk, k, int(k == 0), vec16)
+            per_sm = lib.vq_pq_table_blocks_per_sm(qb, m, kk, k, int(k == 0), vec16)
             if per_sm > 0:
                 break
-        per_block = max(qb, 1)
-    if per_sm < 1:
+        slots, per_block = sms * per_sm, max(qb, 1)
+    if slots < 1:
         raise RuntimeError(f"pq_scan: no {route} block fits on an SM (M={m}, K={kk}, k={k})")
-    slots = sms * per_sm
     cap, kc = (lib.vq_merge_cap(), k) if k else (1 << 30, 1)
-    return qb, grid_chunks(slots, -(-num_q // per_block), -(-n // rows), cap, kc)
+    return qb, grid_chunks(slots, -(-num_q // per_block), -(-n // rows), cap, kc), cluster
 
 
 def _scan(queries, codes, codebooks, k: int, l2: bool, limit: Optional[int], use_bf16: bool,
@@ -193,7 +219,7 @@ def _scan_on_device(queries, codes, codebooks, k: int, l2: bool, limit: Optional
             return out_s, out_i
     vec16 = int(m % 16 == 0 and codes.data_ptr() % 16 == 0)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    qb, chunks = _plan(lib, sms, route, m, kk, k, num_q, n, vec16)
+    qb, chunks, cluster = _plan(lib, sms, route, m, kk, k, num_q, n, vec16)
     if k:
         ncand = num_q * (chunks + merge_groups(chunks, lib.vq_merge_cap(), k)) * k
         cand_s = torch.empty((ncand,), **f32)
@@ -207,16 +233,21 @@ def _scan_on_device(queries, codes, codebooks, k: int, l2: bool, limit: Optional
     lim = _limit(n, limit)
     stream = torch.cuda.current_stream(dev).cuda_stream
     if route == "decode":
-        qpb, sd = lib.vq_pq_decode_queries_per_block(), lib.vq_pq_decode_stage_dims()
-        q16 = torch.empty((-(-num_q // qpb) * qpb, -(-d // sd) * sd), dtype=torch.bfloat16,
-                          device=dev)
+        qp, sd = -(-num_q // qb) * qb, lib.vq_pq_decode_stage_dims()
+        q16 = torch.empty((qp, -(-d // sd) * sd), dtype=torch.bfloat16, device=dev)
         cb16 = torch.empty((m, kk, dsub), dtype=torch.bfloat16, device=dev)
         cnorm = torch.empty((m, kk), **f32)
         rn = torch.empty((n,), **f32) if l2 else None
+        # the wgmma kernel's running top-k and candidate slots, a query and block
+        slots = lib.vq_pq_decode_fold_slots(qb)
+        nfold = qp * chunks * (k + slots) if k and slots else 0
+        fold_s = torch.empty((nfold,), **f32) if nfold else None
+        fold_i = torch.empty((nfold,), dtype=torch.int32, device=dev) if nfold else None
         check(lib.vq_pq_decode_scan(queries.data_ptr(), codebooks.data_ptr(), codes.data_ptr(),
                                     q16.data_ptr(), cb16.data_ptr(), cnorm.data_ptr(), ptr(rn),
-                                    *outs, num_q, n, m, kk, dsub, k, lim, int(l2), chunks,
-                                    stream), "vq_pq_decode_scan")
+                                    *outs[:3], ptr(fold_s), ptr(fold_i), *outs[3:], num_q, n, m,
+                                    kk, dsub, k, lim, int(l2), qb, chunks, cluster, stream),
+              "vq_pq_decode_scan")
     else:
         g = lib.vq_pq_table_group()
         lut = torch.empty((-(-num_q // g) * g, m, kk), **f32)
@@ -224,11 +255,17 @@ def _scan_on_device(queries, codes, codebooks, k: int, l2: bool, limit: Optional
                                    lut.data_ptr(), *outs, num_q, n, m, kk, dsub, k, lim, int(l2),
                                    int(use_bf16), qb, vec16, chunks, stream),
               "vq_pq_table_scan")
-    if k == 0:
-        pq_score_all.launches += 1
-        return out
-    pq_scan_topk_fused.launches += 1
-    return out_s, out_i
+    _count_launch(k, route, qb)
+    return out if k == 0 else (out_s, out_i)
+
+
+def _count_launch(k: int, route: str, width: int) -> None:
+    """One launch of ``pq_score_all`` (k = 0) or ``pq_scan_topk_fused``; a
+    decode-route launch also under its query-tile width."""
+    wrapper = pq_score_all if k == 0 else pq_scan_topk_fused
+    wrapper.launches += 1
+    if route == "decode":
+        wrapper.launches_by_width[width] = wrapper.launches_by_width.get(width, 0) + 1
 
 
 def pq_score_all(queries, codes, codebooks, l2: bool = True,
@@ -265,8 +302,12 @@ def pq_scan_topk_fused(queries, codes, codebooks, k: int, l2: bool = True,
 
 pq_score_all.launches = 0
 pq_scan_topk_fused.launches = 0
+pq_score_all.launches_by_width = {}
+pq_scan_topk_fused.launches_by_width = {}
 
 
 def reset_launch_counts() -> None:
     pq_score_all.launches = 0
     pq_scan_topk_fused.launches = 0
+    pq_score_all.launches_by_width = {}
+    pq_scan_topk_fused.launches_by_width = {}
