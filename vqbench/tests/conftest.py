@@ -4,7 +4,21 @@
 checkout and shrinks each configuration and mix in place (same keys, same
 system, reference and metrics), so a cell runs end to end through the
 program's plain paths in a second or two.  ``run_cell`` drives one run the
-way ``run.py`` does, with the look for a card skipped."""
+way ``run.py`` does, with the look for a card skipped.
+
+The tiny sizes are files found by name, so a new configuration or mix
+brings its own beside it and no file here changes:
+
+    vqbench/tests/tiny/configs/<config>.json   keys to override, ``limits``
+    vqbench/tests/tiny/traffic/<mix>.json      the mix's keys to override
+
+A configuration's overrides replace its top-level numbers and update its
+groups; ``kmeans`` goes into ``ivf``'s k-means where the configuration has
+an IVF, else into ``quantizer``'s; ``limits`` replaces the limits whole
+(the tiny cells' limits: the program's plain paths compute in f32 on the
+CPU, and the CPU's eigensolver is not bit-reproducible).  A cell whose
+configuration or mix has no tiny file stops the copy at once, before any
+run, with the missing path in the error."""
 
 from __future__ import annotations
 
@@ -20,48 +34,45 @@ REPO = Path(__file__).resolve().parents[2]
 if str(REPO) not in sys.path:
     sys.path.insert(0, str(REPO))
 
-TINY_CONFIGS = {
-    "dbpedia1m-pq192": {"n": 4096, "d": 64, "num_queries": 64,
-                        "quantizer": {"num_subquantizers": 8},
-                        "kmeans": {"iters": 3, "max_points_per_centroid": 16}},
-    "msmarco1m-ivfsaq2": {"n": 8192, "d": 64, "num_queries": 64,
-                          "ivf": {"num_clusters": 16}, "kmeans": {"iters": 3},
-                          "quantizer": {"block_dims": 16}},
-}
-TINY_MIXES = {"k100-b1024": {"batch": 48, "k": 20, "passes": 4},
-              "k10-b8": {"batch": 8, "k": 10, "passes": 2},
-              "np50-k10-b1024": {"batch": 32, "k": 10, "nprobe": 4, "passes": 4,
-                                 "judge_batches": 3},
-              "np50-k10-b8": {"batch": 8, "k": 10, "nprobe": 4, "passes": 2,
-                              "judge_batches": 5}}
-# the tiny cells' limits: the program's plain paths compute in f32 on the
-# CPU, and the CPU's eigensolver is not bit-reproducible
-TINY_LIMITS = {"dbpedia1m-pq192": {"fit": 1e-5, "codes": 1e-5, "score_err": 1e-4, "gap": 1e-4},
-               "msmarco1m-ivfsaq2": {"centroids": 1e-5, "fit": 1e-5, "layout": 1e-5,
-                                     "words": 1e-5, "factors": 1e-5, "score_err": 1e-4,
-                                     "gap": 1e-4}}
+TINY = Path("vqbench") / "tests" / "tiny"
 CELLS = [w["name"] for w in json.loads((REPO / "BENCHMARK.json").read_text())["workloads"]]
 
 
-def make_tiny_root(dst: Path) -> Path:
-    shutil.copy(REPO / "BENCHMARK.json", dst / "BENCHMARK.json")
-    shutil.copytree(REPO / "vqbench", dst / "vqbench",
-                    ignore=shutil.ignore_patterns("__pycache__", "results", "tests"))
-    for name, small in TINY_CONFIGS.items():
-        p = dst / "vqbench" / "configs" / f"{name}.json"
+def copy_root(dst: Path, src: Path = REPO, tests: bool = True) -> Path:
+    """``BENCHMARK.json`` and ``vqbench/`` of ``src`` copied to ``dst``."""
+    dst.mkdir(parents=True, exist_ok=True)
+    shutil.copy(src / "BENCHMARK.json", dst / "BENCHMARK.json")
+    skip = ("__pycache__", "results") + (() if tests else ("tests",))
+    shutil.copytree(src / "vqbench", dst / "vqbench", ignore=shutil.ignore_patterns(*skip))
+    return dst
+
+
+def make_tiny_root(dst: Path, src: Path = REPO) -> Path:
+    """The benchmark of ``src`` (without its tests) at ``dst``, each
+    configuration and mix shrunk by its tiny file under ``src``."""
+    bench = json.loads((src / "BENCHMARK.json").read_text())
+    for w in bench["workloads"]:
+        for kind, what in (("configs", "config"), ("traffic", "traffic")):
+            path = src / TINY / kind / f"{w[what]}.json"
+            if not path.is_file():
+                raise FileNotFoundError(f"{path}: no CPU-rehearsal sizes for the {what} "
+                                        f"{w[what]!r} of cell {w['name']!r}")
+    copy_root(dst, src, tests=False)
+    for c in bench["configs"]:
+        p = dst / c["file"]
         cfg = json.loads(p.read_text())
+        small = json.loads((src / TINY / "configs" / f"{c['name']}.json").read_text())
         for key, val in small.items():
             if key == "kmeans":
                 (cfg["ivf"] if "ivf" in cfg else cfg["quantizer"])["kmeans"].update(val)
-            elif isinstance(val, dict):
+            elif isinstance(val, dict) and key != "limits":
                 cfg[key].update(val)
             else:
                 cfg[key] = val
-        cfg["limits"] = TINY_LIMITS[name]
         p.write_text(json.dumps(cfg))
-    for name, small in TINY_MIXES.items():
-        p = dst / "vqbench" / "traffic" / f"{name}.json"
-        p.write_text(json.dumps({**json.loads(p.read_text()), **small}))
+    for small in sorted((src / TINY / "traffic").glob("*.json")):
+        p = dst / "vqbench" / "traffic" / small.name
+        p.write_text(json.dumps({**json.loads(p.read_text()), **json.loads(small.read_text())}))
     return dst
 
 

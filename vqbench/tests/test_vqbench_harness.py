@@ -6,10 +6,11 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import time
 import types
 
 import pytest
-from conftest import CELLS, REPO, run_cell
+from conftest import CELLS, REPO, copy_root, make_tiny_root, run_cell
 
 from vqbench import harness
 
@@ -96,47 +97,79 @@ def test_the_reference_imports_nothing_of_the_program():
     assert out.stdout.strip() == "[]", out.stderr[-2000:]
 
 
-def test_a_new_config_mix_and_metric_are_files_found_by_name(tiny_root):
-    """A configuration, a traffic mix and a per-layer metric added as new
-    files, with entries added to BENCHMARK.json: no file that was there is
-    edited, and the new cell runs and reports the new metric."""
-    vq = tiny_root / "vqbench"
-    before = {p: p.read_bytes() for p in vq.rglob("*") if p.is_file()}
+def add_cell(root, tiny: bool):
+    """A configuration, a traffic mix and a per-layer metric added to the
+    benchmark at ``root`` as new files at full size, with entries added to
+    BENCHMARK.json, and with ``tiny`` their CPU-rehearsal sizes as new
+    files too."""
+    vq = root / "vqbench"
     cfg = json.loads((vq / "configs" / "dbpedia1m-pq192.json").read_text())
-    cfg.update(n=2048, d=32)
-    cfg["quantizer"]["num_subquantizers"] = 4
-    (vq / "configs" / "tiny-pq4.json").write_text(json.dumps(cfg))
-    (vq / "traffic" / "k5-b16.json").write_text(json.dumps(
-        {"batch": 16, "k": 5, "nprobe": None, "loop": "closed", "passes": 2,
+    cfg["quantizer"]["num_subquantizers"] = 96
+    (vq / "configs" / "new-pq96.json").write_text(json.dumps(cfg))
+    (vq / "traffic" / "k5-b512.json").write_text(json.dumps(
+        {"batch": 512, "k": 5, "nprobe": None, "loop": "closed", "passes": 64,
          "judge_batches": None}))
     (vq / "layer_metrics" / "search.batches_traced.py").write_text(
         "def read(ctx):\n    return ctx.trace['batches']\n")
-    bench = json.loads((tiny_root / "BENCHMARK.json").read_text())
-    bench["configs"].append({"name": "tiny-pq4", "source": "https://example.org/tiny",
-                             "file": "vqbench/configs/tiny-pq4.json", "reduced": [],
+    if tiny:
+        (vq / "tests" / "tiny" / "configs" / "new-pq96.json").write_text(json.dumps(
+            {"n": 2048, "d": 32, "num_queries": 64, "quantizer": {"num_subquantizers": 4},
+             "kmeans": {"iters": 3, "max_points_per_centroid": 16},
+             "limits": {"fit": 1e-5, "codes": 1e-5, "score_err": 1e-4, "gap": 1e-4}}))
+        (vq / "tests" / "tiny" / "traffic" / "k5-b512.json").write_text(json.dumps(
+            {"batch": 16, "k": 5, "passes": 2}))
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    bench["configs"].append({"name": "new-pq96", "source": "https://example.org/new",
+                             "file": "vqbench/configs/new-pq96.json", "reduced": [],
                              "why": "a test"})
-    bench["workloads"].append({"name": "tiny-pq4.k5-b16", "config": "tiny-pq4",
-                               "traffic": "k5-b16", "chips": 1, "why": "a test"})
+    bench["workloads"].append({"name": "new-pq96.k5-b512", "config": "new-pq96",
+                               "traffic": "k5-b512", "chips": 1, "why": "a test"})
     bench["per_layer"].append({"name": "search.batches_traced", "unit": "batches",
                                "better": "higher", "source": "device_trace", "layer": "index",
-                               "moves": "qps", "workloads": ["tiny-pq4.k5-b16"]})
-    (tiny_root / "BENCHMARK.json").write_text(json.dumps(bench))
+                               "moves": "qps", "workloads": ["new-pq96.k5-b512"]})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+
+
+def test_a_new_config_mix_and_metric_are_files_found_by_name(tmp_path):
+    """A cell added as new files, its CPU-rehearsal sizes among them: no
+    file under vqbench/ that was there (its tests included) is edited,
+    and the new cell is rehearsed end to end at its tiny sizes and reports
+    the new metric."""
+    src = copy_root(tmp_path / "src")
+    before = {p: p.read_bytes() for p in (src / "vqbench").rglob("*") if p.is_file()}
+    assert any(p.parent.name == "tests" for p in before)
+    add_cell(src, tiny=True)
     assert all(p.read_bytes() == b for p, b in before.items())
-    rc, res = run_cell(tiny_root, "tiny-pq4.k5-b16", trace=1)
+    root = make_tiny_root(tmp_path / "tiny", src)
+    _, _, cfg, mix = harness.load_cell(root, "new-pq96.k5-b512")
+    assert (cfg["n"], cfg["d"], cfg["quantizer"]["num_subquantizers"]) == (2048, 32, 4)
+    assert (mix["batch"], mix["k"], mix["passes"]) == (16, 5, 2)
+    rc, res = run_cell(root, "new-pq96.k5-b512", trace=1)
     assert rc == 0 and res["correct"] is True
     assert res["metrics"]["search.batches_traced"]["value"] >= 3
-    rc, res = run_cell(tiny_root, "tiny-pq4.k5-b16", trace=0)
+    rc, res = run_cell(root, "new-pq96.k5-b512", trace=0)
     assert rc == 0 and set(res["metrics"]) == {"qps", "recall", "build_s", "setup_s"}
+
+
+def test_a_cell_without_tiny_sizes_fails_its_rehearsal_at_once(tmp_path):
+    """No tiny file for a cell's configuration, then none for its mix: the
+    copy stops before any run, naming the missing file."""
+    src = copy_root(tmp_path / "src")
+    add_cell(src, tiny=False)
+    t0 = time.perf_counter()
+    with pytest.raises(FileNotFoundError, match="tiny/configs/new-pq96.json"):
+        make_tiny_root(tmp_path / "tiny", src)
+    (src / "vqbench" / "tests" / "tiny" / "configs" / "new-pq96.json").write_text(
+        json.dumps({"n": 2048, "d": 32}))
+    with pytest.raises(FileNotFoundError, match="tiny/traffic/k5-b512.json"):
+        make_tiny_root(tmp_path / "tiny", src)
+    assert time.perf_counter() - t0 < 10 and not (tmp_path / "tiny").exists()
 
 
 def test_run_py_without_a_card_exits_non_zero_and_prints_no_result(tmp_path):
     """In a directory that holds only BENCHMARK.json and the benchmark's
     files (no program), and in the repository: without a card, no line."""
-    import shutil
-
-    shutil.copy(REPO / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
-    shutil.copytree(REPO / "vqbench", tmp_path / "vqbench",
-                    ignore=shutil.ignore_patterns("__pycache__", "results"))
+    copy_root(tmp_path)
     for root in (tmp_path, REPO):
         out = subprocess.run([sys.executable, "vqbench/run.py", "--workload", CELLS[0],
                               "--seed", str(2**31 + 3), "--seconds", "1", "--trace", "0"],
