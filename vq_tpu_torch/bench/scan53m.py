@@ -13,8 +13,8 @@ over every row.
 * ``saq``: SAQ bpd=1 (uniform allocator: one 1-bit segment of the full
   width) fitted on the first chunk.  The whole packed cache — the word
   plane, the (F, N) factors and the tile stats — is allocated once and
-  filled in place chunk by chunk from each chunk's ``prepare_packed``
-  (``fill_packed``); each chunk's byte rows are freed as it is converted,
+  filled in place chunk by chunk (``methods/saq.py::fill_packed``); each
+  chunk's byte rows are freed as it is converted,
   so no chunk list and no second copy of the 6.8 GB plane ever exist.
   Then the dense packed kernel scans all rows at Q=256, k=10.  At 53M rows
   and D=1024 the 1-bit plane holds 53,000,192/32·1024 ≈ 1.70e9 int32
@@ -47,7 +47,8 @@ from vq_tpu_torch._device import make_generator, resolve_device
 from vq_tpu_torch.bench.corpora import powerlaw_sigma
 from vq_tpu_torch.bench.headline import card, sustained, sync
 from vq_tpu_torch.core.config import KMeansConfig, Metric, PQConfig, SAQConfig
-from vq_tpu_torch.kernels.packed_scan import TILE, PackedCorpus
+from vq_tpu_torch.kernels.packed_scan import TILE
+from vq_tpu_torch.methods.saq import fill_packed
 
 D = 1024
 CHUNK = 131_072  # rows a chunk; a multiple of the packed layout's 512-row tile
@@ -92,46 +93,6 @@ def keep_index(keep: Optional[dict], search, q: torch.Tensor, src: torch.Tensor,
     source ids, and σ, so a caller can query the resident index again."""
     if keep is not None:
         keep.update(search=search, queries=q, sources=src, sigma=sigma)
-
-
-def fill_packed(plan, params, n: int, code_chunks: Iterable[Tuple[int, torch.Tensor]],
-                device) -> PackedCorpus:
-    """The SAQ packed cache of an n-row corpus, allocated once and filled in
-    place from ``code_chunks`` — (first row, byte rows) in row order, every
-    chunk but the last a multiple of the 512-row tile.  Each chunk goes
-    through ``saq.prepare_packed`` (which pads a ragged last chunk with zero
-    rows and leaves them out of the tile stats, as it does for the whole
-    corpus) and its words, factor columns and tile stats are copied to
-    their place; the result equals ``prepare_packed`` over all n rows (no
-    norms, no norm order) bit for bit."""
-    from vq_tpu_torch.methods import saq
-
-    segs = saq.packed_segspecs(plan, params)[0]
-    n_pad = n + (-n) % TILE
-    words = [torch.empty((n_pad, s.ln) if s.dequant == "values" else (n_pad // s.u, s.ln),
-                         dtype=torch.float32 if s.dequant == "values" else torch.int32,
-                         device=device) for s in segs]
-    factors = torch.empty((2 * plan.num_segments + 1, n_pad), dtype=torch.float32,
-                          device=device)
-    stats = torch.empty((n_pad // TILE, 5), dtype=torch.float32, device=device)
-    filled = 0
-    for i0, codes in code_chunks:
-        if i0 != filled or i0 % TILE:
-            raise ValueError(f"chunk at row {i0}: chunks must follow each other and start "
-                             f"on a {TILE}-row tile (filled {filled} rows)")
-        pc = saq.prepare_packed(plan, params, codes)
-        i1 = i0 + pc.factors.shape[1]
-        for w, part, s in zip(words, pc.words, segs):
-            u = 1 if s.dequant == "values" else s.u
-            w[i0 // u:i1 // u] = part
-        factors[:, i0:i1] = pc.factors
-        stats[i0 // TILE:i1 // TILE] = pc.tile_stats
-        filled = i0 + codes.shape[0]
-        del pc
-    if filled != n:
-        raise ValueError(f"the chunks hold {filled} rows, not {n}")
-    return PackedCorpus(words=words, factors=factors, num_rows=n, tile_stats=stats,
-                        has_norms=False, prune_hint=saq.prune_hint_from_stats(stats))
 
 
 def encode_pq(params, n: int, chunks: Iterable[Tuple[int, torch.Tensor]]) -> torch.Tensor:

@@ -18,8 +18,10 @@ from vq_tpu_torch._device import as_f32, make_generator
 
 def host_sample_rows(x, cap: int, seed: int = 0):
     """Return ≤cap rows of x as float32: a tensor for tensor input (sampled
-    on its device), numpy otherwise (sorted indices keep mmap reads
-    sequential)."""
+    on its device); for any other row source (numpy, np.memmap, an object
+    whose ``x[ids]`` gives rows) the same sorted numpy draw, kept as a
+    tensor where the source hands back tensors and numpy otherwise (sorted
+    indices keep mmap reads sequential)."""
     n = x.shape[0]
     if isinstance(x, torch.Tensor):
         if n <= cap:
@@ -32,6 +34,8 @@ def host_sample_rows(x, cap: int, seed: int = 0):
     else:
         rng = np.random.default_rng(seed)
         rows = x[np.sort(rng.choice(n, cap, replace=False))]
+    if isinstance(rows, torch.Tensor):
+        return rows.to(torch.float32)
     return np.asarray(rows, dtype=np.float32)
 
 

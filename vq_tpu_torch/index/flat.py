@@ -5,6 +5,14 @@ quantizer's ``scan_topk`` (the PQ ADC scan of ``kernels/adc.py``, or the
 packed-code scan of SAQ and RaBitQ over the layout ``prepare_scan`` built
 once at fit).  The original row
 norms are kept as a 4 B/vector side-channel for the normalized-IP metric.
+
+``fit`` takes a row source — a tensor, numpy / np.memmap, or any object
+with ``shape`` whose ``X[i0:i1]`` slices (and ``X[ids]`` row lists) give
+rows as numpy or tensors — and never holds more than a chunk of it as f32
+on the device: the quantizer samples its fit and encodes chunk by chunk,
+and the norms are taken a chunk at a time.  Its stages are spans
+(``utils/trace.py``): ``build`` around them, ``build.fit``,
+``build.encode``, ``build.norms`` and ``build.pack``.
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ import torch
 
 from vq_tpu_torch.core.config import SearchConfig
 from vq_tpu_torch._device import as_f32
+from vq_tpu_torch.data.sampling import chunk_rows_for_bytes
 from vq_tpu_torch.index.base import BaseSearchIndex, nbytes_of
 from vq_tpu_torch.methods.base import BaseQuantizer, tree_leaves
 from vq_tpu_torch.utils.trace import span
@@ -37,18 +46,35 @@ class FlatQuantizedIndex(BaseSearchIndex):
     def device(self) -> torch.device:
         return self.quantizer.device
 
-    def fit(self, X) -> "FlatQuantizedIndex":
+    @property
+    def scan_cache(self):
+        """What the quantizer's ``prepare_scan`` built at fit (SAQ: the
+        norm-ordered ``PackedCorpus``), or None."""
+        return self._scan_cache
+
+    def fit(self, X, chunk_rows: int = 0) -> "FlatQuantizedIndex":
         """Fit the quantizer (unless it already has params), encode X and
-        keep its row norms.  X: numpy (moved to the device) or a tensor."""
-        if self.quantizer.params is None:
-            self.quantizer.fit(X)
-        self.codes = self.quantizer.compress(X)
-        x = as_f32(X, self.device)
-        self.norms = torch.linalg.norm(x, dim=-1)
-        del x
-        self.num_rows = X.shape[0]
-        self._scan_cache = self.quantizer.prepare_scan(
-            self.codes, norms=self.norms, num_queries=self.search_cfg.prepare_queries)
+        keep its row norms, taken ``chunk_rows`` rows at a time (default:
+        256 MB of f32).  X: a row source (module docstring); the index
+        lives on the quantizer's device (X's, or the card for host data,
+        when the quantizer has none)."""
+        n, d = X.shape
+        chunk = chunk_rows or chunk_rows_for_bytes(d)
+        with span("build"):
+            if self.quantizer.params is None:
+                with span("build.fit"):
+                    self.quantizer.fit(X)
+            with span("build.encode"):
+                self.codes = self.quantizer.compress(X)
+            with span("build.norms"):
+                self.norms = torch.empty((n,), dtype=torch.float32, device=self.device)
+                for i0 in range(0, n, chunk):
+                    self.norms[i0:i0 + chunk] = torch.linalg.norm(
+                        as_f32(X[i0:i0 + chunk], self.device), dim=-1)
+            self.num_rows = n
+            with span("build.pack"):
+                self._scan_cache = self.quantizer.prepare_scan(
+                    self.codes, norms=self.norms, num_queries=self.search_cfg.prepare_queries)
         return self
 
     def search_with_scores(self, queries, k: int = 10) -> Tuple[np.ndarray, np.ndarray]:
@@ -61,6 +87,24 @@ class FlatQuantizedIndex(BaseSearchIndex):
                 cache=self._scan_cache)
             with span("search.fetch"):
                 return idx.cpu().numpy().astype(np.uint32), scores.cpu().numpy()
+
+    @property
+    def last_tiles_scanned(self) -> int:
+        """The packed kernel's scanned units in the last search: (query
+        block, tile) pairs on the card, tiles in the plain twin's sequence
+        on the CPU; every unit with the variance prune off; 0 where the
+        search took no dense packed scan (the cache's ``last_scan``, set by
+        SAQ's scan).  Reading it syncs the device scalar."""
+        return int(self._last_scan().get("tiles_scanned", 0))
+
+    @property
+    def last_scan_units(self) -> int:
+        """The units ``last_tiles_scanned`` counts a part of: what the last
+        search's dense packed scan covers without the prune (0: none ran)."""
+        return int(self._last_scan().get("scan_units", 0))
+
+    def _last_scan(self) -> dict:
+        return getattr(self._scan_cache, "last_scan", {})
 
     def memory_footprint(self) -> int:
         params_b = sum(nbytes_of(p) for p in tree_leaves(self.quantizer.params))

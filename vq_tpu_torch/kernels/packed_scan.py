@@ -120,6 +120,9 @@ class PackedCorpus:
     perm        (num_rows,) int32 scan position → corpus row id when the
                 builder norm-ordered the rows; else None
     prune_hint  the tile bounds differ enough for the prune stage to fire
+    last_scan   the work of the last dense scan over this layout through
+                ``methods/saq.py::scan_topk`` ({} before one): ``scan_units``
+                and ``tiles_scanned``, as ``prune_units`` counts them
     """
 
     def __init__(self, words, factors, num_rows, tile_stats=None, has_norms=False,
@@ -131,6 +134,7 @@ class PackedCorpus:
         self.has_norms = bool(has_norms)
         self.perm = perm
         self.prune_hint = bool(prune_hint)
+        self.last_scan: dict = {}
 
 
 def pack_words(idx: torch.Tensor, bits: int, beff: Optional[int] = None) -> torch.Tensor:

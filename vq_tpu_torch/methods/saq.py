@@ -21,7 +21,7 @@
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Iterable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,6 +52,7 @@ from vq_tpu_torch.kernels.packed_scan import (
     make_segspec,
     pack_words,
     packed_scan_topk,
+    prune_units,
 )
 from vq_tpu_torch.kernels.topk import ordered_topk
 from vq_tpu_torch.methods.base import BaseQuantizer
@@ -461,6 +462,53 @@ def _convert_rows(plan: SAQPlan, params: SAQParams, rows: torch.Tensor):
     return tuple(words), torch.stack(fac_rows + r2_rows), rhat_sq, me
 
 
+class _PackedFill:
+    """The packed layout of an n-row corpus, allocated once and written in
+    place chunk by chunk (``write``), so no chunk list and no second copy
+    of a word plane exists.  At 53.2M rows and D=1024 a plane holds up to
+    2.13e9 int32 words: torch indexes it with 64-bit offsets, the kernel
+    with ``size_t`` ones."""
+
+    def __init__(self, plan: SAQPlan, params: SAQParams, n: int, device, nv: int):
+        self.plan, self.params, self.n, self.nv = plan, params, n, nv
+        self.segs = packed_segspecs(plan, params)[0]
+        n_pad = n + (-n) % TILE
+        self.words = tuple(
+            torch.empty((n_pad, s.ln), dtype=torch.float32, device=device)
+            if s.dequant == "values" else
+            torch.empty((n_pad // s.u, s.ln), dtype=torch.int32, device=device)
+            for s in self.segs)
+        self.factors = torch.empty((2 * plan.num_segments + 1, n_pad), dtype=torch.float32,
+                                   device=device)
+        self.stats = torch.empty((n_pad // TILE, 5), dtype=torch.float32, device=device)
+
+    def write(self, i0: int, rows: torch.Tensor, norms: Optional[torch.Tensor] = None) -> None:
+        """Byte rows for scan positions [i0, i0 + len(rows)), i0 on a tile,
+        padded to whole tiles with zero rows (idx 0 / rescale 0; ``limit``
+        masks them), and their original norms (None: 1.0)."""
+        pad = (-rows.shape[0]) % TILE
+        if pad:
+            rows = torch.nn.functional.pad(rows, (0, 0, 0, pad))
+        i1 = i0 + rows.shape[0]
+        w, f, r, m = _convert_rows(self.plan, self.params, rows)
+        for dst, part, s in zip(self.words, w, self.segs):
+            u = 1 if s.dequant == "values" else s.u
+            dst[i0 // u:i1 // u] = part
+        s2 = f.shape[0]
+        self.factors[:s2, i0:i1] = f
+        nrm = self.factors[s2, i0:i1]
+        nrm.fill_(1.0)
+        if norms is not None:
+            nrm[:norms.shape[0]] = norms.to(torch.float32)
+        self.stats[i0 // TILE:i1 // TILE] = _tile_stats(
+            r, m, self.nv - i0, norms=nrm if norms is not None else None)
+
+    def corpus(self, has_norms: bool, perm=None) -> PackedCorpus:
+        return PackedCorpus(words=self.words, factors=self.factors, num_rows=self.n,
+                            tile_stats=self.stats, has_norms=has_norms, perm=perm,
+                            prune_hint=prune_hint_from_stats(self.stats))
+
+
 def prepare_packed(plan: SAQPlan, params: SAQParams, codes: torch.Tensor,
                    norms: Optional[torch.Tensor] = None, row_chunk: int = 131072,
                    sort_rows: bool = False,
@@ -469,7 +517,8 @@ def prepare_packed(plan: SAQPlan, params: SAQParams, codes: torch.Tensor,
     the segment-s rescale, row S+s its L2 shift r2_s, row 2S the original
     row norm for Metric.NIP (1.0 when absent) — and the prune tile stats
     (min/max ‖r̂‖, the CAQ error margin Σ_s fac_error_s/‖o_s‖ rebuilt from
-    the stored factors, the norm envelope), chunk by chunk.
+    the stored factors, the norm envelope), written in place ``row_chunk``
+    rows at a time (``_PackedFill``).
 
     sort_rows=True NORM-ORDERS the rows (a stable sort by the stored
     o_l2norm key) so that tiles span narrow norm bands and the prune bound
@@ -486,34 +535,42 @@ def prepare_packed(plan: SAQPlan, params: SAQParams, codes: torch.Tensor,
             key = torch.where(torch.arange(n, device=dev) < nv, key,
                               torch.full_like(key, np.inf))
         order = torch.argsort(key, stable=True)
+        del key
         if norms is not None:
             norms = norms[order]
         perm = order.to(torch.int32)
     row_chunk = max(TILE, row_chunk - row_chunk % TILE)
-    n_pad = n + (-n) % TILE
+    fill = _PackedFill(plan, params, n, dev, nv)
+    for i0 in range(0, n, row_chunk):
+        i1 = min(i0 + row_chunk, n)
+        fill.write(i0, codes[i0:i1] if order is None else codes[order[i0:i1]],
+                   None if norms is None else norms[i0:i1])
+    return fill.corpus(norms is not None, perm)
 
-    w_chunks, f_chunks, r_chunks, m_chunks = [], [], [], []
-    for i0 in range(0, n_pad, row_chunk):
-        i1 = min(i0 + row_chunk, n_pad)
-        rows = codes[i0: min(i1, n)] if order is None else codes[order[i0: min(i1, n)]]
-        if i1 > n:  # zero byte rows parse to idx 0 / rescale 0; `limit` masks them
-            rows = torch.nn.functional.pad(rows, (0, 0, 0, i1 - max(i0, n)))
-        w, f, r, m = _convert_rows(plan, params, rows)
-        w_chunks.append(w)
-        f_chunks.append(f)
-        r_chunks.append(r)
-        m_chunks.append(m)
 
-    words = tuple(torch.cat([c[s] for c in w_chunks]) for s in range(plan.num_segments))
-    nrm_row = torch.ones((n_pad,), dtype=torch.float32, device=dev)
-    if norms is not None:
-        nrm_row[:n] = norms.to(torch.float32)
-    stats = _tile_stats(torch.cat(r_chunks), torch.cat(m_chunks), nv,
-                        norms=nrm_row if norms is not None else None)
-    fac = torch.cat([torch.cat(f_chunks, dim=1), nrm_row[None]], dim=0).contiguous()
-    return PackedCorpus(words=words, factors=fac, num_rows=n, tile_stats=stats,
-                        has_norms=norms is not None, perm=perm,
-                        prune_hint=prune_hint_from_stats(stats))
+def fill_packed(plan: SAQPlan, params: SAQParams, n: int,
+                code_chunks: Iterable[Tuple[int, torch.Tensor]], device,
+                row_chunk: int = 131072) -> PackedCorpus:
+    """The packed cache of an n-row corpus given as ``code_chunks`` —
+    (first row, byte rows) in row order, every chunk but the last a
+    multiple of the 512-row tile — each written in place as it comes
+    (``row_chunk`` rows at a time), so a caller can free its byte rows
+    chunk by chunk.  Equals ``prepare_packed`` over all n rows (no norms,
+    no norm order) bit for bit."""
+    row_chunk = max(TILE, row_chunk - row_chunk % TILE)
+    fill = _PackedFill(plan, params, n, torch.device(device), n)
+    filled = 0
+    for i0, codes in code_chunks:
+        if i0 != filled or i0 % TILE or i0 + codes.shape[0] > n:
+            raise ValueError(f"chunk of {codes.shape[0]} rows at row {i0}: chunks must follow "
+                             f"each other, start on a {TILE}-row tile and end by row {n} "
+                             f"(filled {filled} rows)")
+        for j0 in range(0, codes.shape[0], row_chunk):
+            fill.write(i0 + j0, codes[j0:j0 + row_chunk])
+        filled = i0 + codes.shape[0]
+    if filled != n:
+        raise ValueError(f"the chunks hold {filled} rows, not {n}")
+    return fill.corpus(False)
 
 
 def _packed_query_side(plan: SAQPlan, params: SAQParams, queries: torch.Tensor, seg_ids):
@@ -590,6 +647,12 @@ def scan_topk(plan: SAQPlan, params: SAQParams, queries, codes: torch.Tensor, k:
     (``prune_tiles`` overrides); ids of a norm-ordered cache are mapped
     back through ``perm``.  Otherwise the plain streaming scan.
 
+    ``packed_cache.last_scan`` records the work of the call's dense packed
+    scan, without a device sync ({} where none ran): ``scan_units``, what a
+    scan without the prune covers (``prune_units``: (query block, tile)
+    pairs on the card, tiles in the plain twin), and ``tiles_scanned``, the
+    part of it scanned (a device scalar where the prune ran).
+
     ``prune_segments`` = p > 0 (with p < the segment count and n > 2·
     ``rerank_factor``·k) is the head-segment cascade: stage 1 scores every
     row on the first p segments alone (the packed kernel over that segment
@@ -609,6 +672,8 @@ def scan_topk(plan: SAQPlan, params: SAQParams, queries, codes: torch.Tensor, k:
     head = tuple(range(prune_segments))
     if use_packed is None:
         use_packed = n >= TILE and k <= 128
+    if packed_cache is not None:
+        packed_cache.last_scan = {}
     if use_packed:
         if metric == Metric.NIP:
             # a cache built without real norms would return un-normalized scores
@@ -635,6 +700,10 @@ def scan_topk(plan: SAQPlan, params: SAQParams, queries, codes: torch.Tensor, k:
         out = _packed_scan(plan, params, queries, packed, k, metric, num_valid=num_valid,
                            use_bf16=use_bf16, prune=prune)
         outs, outi = out[0], out[1]
+        if packed is packed_cache:
+            units = prune_units(num_q, packed.factors.shape[1], dev)
+            packed.last_scan = {"scan_units": units,
+                                "tiles_scanned": out[2] if prune else units}
         if packed.perm is not None:
             outi = packed.perm[outi.long()]
         return _finalize(outs, outi, metric, q_sq)
