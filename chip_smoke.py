@@ -8,8 +8,8 @@ Phases (any failure exits non-zero; nothing is caught):
 1. Device: the card's name and power limit (nvidia-smi), CUDA required,
    TF32 off.
 2. Build the CUDA kernels of ``vq_tpu_torch/csrc`` from the checkout (one
-   nvcc per source, in parallel); the ptxas report; the HMMA (tensor-core)
-   instructions in the SASS of the packed kernel's bf16 instance and of
+   nvcc per source, in parallel); the ptxas report; the tensor-core (HGMMA,
+   HMMA) instructions in the SASS of the packed kernel's bf16 instances and of
    the PQ decode route's kernels, which must have them.
 3. The PQ kernels against their plain PyTorch versions on the card: f32
    edge cases at small shapes (the table route); the decode route's edge
@@ -41,7 +41,9 @@ Phases (any failure exits non-zero; nothing is caught):
    ids; every dequant kind must launch; edge cases (limit < k, limit
    masking, N < 512, k = 1 and 128, planted ties), and in bf16 Q = 1, 7
    and 65, N < 512, k = 1 and 128 and segment lengths that are not
-   multiples of 16 against the plain bf16 version; kernel and plain times
+   multiples of 16 against the plain bf16 version, and every query-tile
+   width (Q = 1, 64, 65, 1024) dense, with the prune and through tile
+   masks (every tile, 25%, one, none); kernel and plain times
    in bf16 (tensor cores) and f32 (FFMA), each beside its bound.
 7. The SAQ path (``bench.py:248-380`` on the port): FlatQuantizedIndex(SAQ
    bpd=2, PCA) fit, encode and norm-ordered pack, ground truth, search at
@@ -222,6 +224,7 @@ RECALL_GATE_PQ192_FLOOR = 0.763  # bench.py:48
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12, "f32 add": 33.5e12}
 BF16_MIN_RECALL = 0.99
+PACKED_KERNELS = ("packed_scan_bf16_kernel", "packed_scan_f32_kernel")  # csrc/packed_scan.cu
 # A row rescored in f32 beside a bf16 search's score: the search rounds the
 # query and the decoded values to bf16 (relative error ≤ 2^-9 each), so the
 # score's terms |2·q·x̂| + ‖x̂‖² ≤ ‖q‖² + 2·‖x̂‖² move by about 2^-8 of
@@ -872,10 +875,11 @@ def synthetic_packed(torch, dev, n, nq, seed):
 
 def sass_hmma(lib_path) -> dict:
     """Tensor-core instructions (HMMA of mma.sync, HGMMA of wgmma) in the
-    scan kernels of the built library, from ``cuobjdump -sass``: {"bf16":
-    n, "f32": n} of the packed kernel's two instances, "pq decode
-    score_all" / "pq decode fused" of the PQ decode route's wgmma kernel,
-    "pq decode mma score_all" / "pq decode mma fused" of its mma.sync one."""
+    scan kernels of the built library, from ``cuobjdump -sass``: "bf16 W"
+    of the packed wgmma kernel at each query-tile width W, "f32" of its FFMA
+    kernel, "pq decode score_all" / "pq decode fused" of the PQ decode
+    route's wgmma kernel, "pq decode mma score_all" / "pq decode mma fused"
+    of its mma.sync one."""
     from vq_tpu_torch.kernels._build import find_nvcc
 
     tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
@@ -884,8 +888,11 @@ def sass_hmma(lib_path) -> dict:
     out = {}
     for sec in sass.split("Function : ")[1:]:
         name = sec.split("\n", 1)[0]
-        if "packed_scan_kernel" in name:
-            out["bf16" if "packed_scan_kernelILb1" in name else "f32"] = sec.count("HMMA")
+        if "packed_scan_bf16_kernel" in name:
+            width = name.split("packed_scan_bf16_kernelILi")[1].split("E")[0]
+            out[f"bf16 {width}"] = sec.count("HGMMA")
+        elif "packed_scan_f32_kernel" in name:
+            out["f32"] = sec.count("HMMA") + sec.count("HGMMA")
         elif "decode_scan_kernel" in name or "decode_mma_kernel" in name:
             kind = "mma " if "decode_mma_kernel" in name else ""
             out[f"pq decode {kind}" + ("score_all" if "_kernelILb1" in name else "fused")] = (
@@ -893,14 +900,102 @@ def sass_hmma(lib_path) -> dict:
     return out
 
 
+def packed_width_cases(torch, dev, n=5000, seed=13):
+    """The bf16 kernel at every query-tile width ``scan_width`` picks (Q =
+    1, 64, 65, 1024: widths 64, 64, 128, 128) over segments of every kind
+    (uniform, perdim, shared, an f32 value plane; lengths 40, 21, 9, 7:
+    bulk-copied and 4-byte-copied word rows), L2 and IP with a limit, k =
+    100 and 128: dense; prune on with tile stats that never prune (ids and
+    scores = dense, `scanned` = every (query block, tile) pair, the plain
+    count); gather with every tile (= dense bit for bit), 25% of tiles, one
+    tile (with prune: one pair a query block) and none (cnt = 0: -inf, id
+    0).  Ids below the limit and in masked-in tiles; recall@k against the
+    plain bf16 version pooled; the launches counted at each width; on the
+    card, a block of each width fits beside the widest word slot (a value
+    plane).  Returns a line for the log."""
+    from vq_tpu_torch.kernels import packed_scan as pk
+
+    syn = synthetic_packed(torch, dev, n, 1024, seed)
+    n_pad = syn["factors"].shape[1]
+    nb = n_pad // 512
+    stats = torch.zeros((nb, 5), device=dev)
+    stats[:, 1], stats[:, 3], stats[:, 4] = 1e3, 1.0, 1.0
+    g = torch.Generator().manual_seed(seed)
+    one = torch.zeros((nb,), dtype=torch.int32)
+    one[nb // 2] = 1
+    masks = {"all": torch.ones((nb,), dtype=torch.int32),
+             "25%": (torch.rand((nb,), generator=g) < 0.25).to(torch.int32), "one": one,
+             "none": torch.zeros((nb,), dtype=torch.int32)}
+    masks = {name: mk.to(dev) for name, mk in masks.items()}
+    before = dict(pk.packed_scan_topk.launches_by_width)
+    hits = total = 0
+    for nq in (1, 64, 65, 1024):
+        qp = torch.stack([torch.full((nq,), 1e30, device=dev), torch.ones((nq,), device=dev)], 1)
+        for k in (100, 128):
+            for kind in ("l2", "ip"):
+                lim = n - 77 if kind == "ip" else n
+                a = {**syn, "q_cat": syn["q_cat"][:nq], "qa": syn["qa"][:nq], "k": k,
+                     "metric_kind": kind, "limit": lim}
+                what = f"packed bf16 widths Q={nq} k={k} {kind}"
+                runs = [("dense", a, pk.packed_scan_topk(**a))]
+                ps_, pi_, cnt = pk.packed_scan_topk(**{**a, "prune": True, "tile_stats": stats,
+                                                       "qprune": qp})
+                require(torch.equal(pi_, runs[0][2][1]) and torch.equal(ps_, runs[0][2][0]),
+                        f"{what}: prune differs from dense")
+                units = pk.prune_units(nq, n_pad, dev)
+                require(int(cnt) == units, f"{what}: prune scanned {int(cnt)} of {units} pairs")
+                for mname, mask in masks.items():
+                    am = {**a, "tile_mask": mask}
+                    gs, gi = pk.packed_scan_topk(**am)
+                    if mname == "all":
+                        require(torch.equal(gs, runs[0][2][0]) and torch.equal(gi, runs[0][2][1]),
+                                f"{what}: gather of every tile differs from dense")
+                    elif mname == "none":
+                        require(bool((gs == -np.inf).all() and (gi == 0).all()),
+                                f"{what}: empty gather list")
+                    else:
+                        require(bool((mask[gi.long() // 512] != 0).all()),
+                                f"{what} {mname}: ids outside the masked-in tiles")
+                        runs.append((mname, am, (gs, gi)))
+                    if mname == "one":
+                        c1 = pk.packed_scan_topk(**{**am, "prune": True, "tile_stats": stats,
+                                                    "qprune": qp})[2]
+                        want = pk.prune_units(nq, n_pad, dev, tiles=1)
+                        require(int(c1) == want, f"{what}: one tile scanned {int(c1)} != {want}")
+                for _, ar, (_, ki) in runs:
+                    pi = pk.packed_scan_topk_plain(**ar)[1]
+                    kk = min(k, lim)
+                    require(bool((ki < lim).all()), f"{what}: ids past the limit")
+                    ki, pi = ki.cpu().tolist(), pi.cpu().tolist()
+                    hits += sum(len(set(x[:kk]) & set(y[:kk])) for x, y in zip(ki, pi))
+                    total += kk * len(ki)
+    widths = {w: n_ - before.get(w, 0) for w, n_ in pk.packed_scan_topk.launches_by_width.items()}
+    require_launched({f"width {w}": widths.get(w, 0) for w in pk.SCAN_WIDTHS},
+                     "a query-tile width never launched")
+    if dev.type == "cuda":
+        from vq_tpu_torch.kernels._build import load_library
+
+        lib = load_library()
+        plane = syn["words"][3]
+        desc = np.array([[plane.data_ptr(), 0, 6, 32, 64, 3, 0, 0]], dtype=np.int64)
+        fits = {w: lib.vq_packed_blocks_per_sm(desc.ctypes.data, 1, 1, w, 1, 0)
+                for w in pk.SCAN_WIDTHS}
+        require(all(v >= 1 for v in fits.values()), f"a width does not fit a block: {fits}")
+    require(hits / total >= BF16_MIN_RECALL,
+            f"packed bf16 widths: pooled recall {hits / total} < {BF16_MIN_RECALL}")
+    return (f"bf16 at widths {dict(sorted(widths.items()))} (launches), Q = 1, 64, 65, 1024, "
+            f"k = 100, 128, dense / prune / gather (all, 25%, one, none): recall@k vs plain "
+            f"bf16 {hits / total:.4f}, prune = dense, scanned = every pair, every tile = dense")
+
+
 def phase_packed_edges(torch, dev, q, m, packed, codes):
     """SAQ uniform: limit < k, limit masking, N < 512, k = 1 and 128, planted
     ties; f32 ids must equal the plain version's where separated.  Then bf16
-    (tensor cores) on the shapes the MMA path finds hard -- Q = 1, 7 and 65
-    (not multiples of its 8-query tiles or 64-query blocks), k = 1 and 128,
-    N < 512, and segments whose lengths are not multiples of its 16-dim
-    k-steps -- against the plain bf16 version: ids below the limit and a
-    pooled recall ≥ BF16_MIN_RECALL."""
+    (tensor cores) on the shapes the wgmma path finds hard -- Q = 1, 7 and
+    65 (not multiples of its query tiles), k = 1 and 128, N < 512, and
+    segments whose lengths are not multiples of its 16-dim k-steps --
+    against the plain bf16 version: ids below the limit and a pooled recall
+    ≥ BF16_MIN_RECALL; and every query-tile width (``packed_width_cases``)."""
     from vq_tpu_torch import Metric
     from vq_tpu_torch.bench.tolerance import packed_tol
     from vq_tpu_torch.kernels import packed_scan as pk
@@ -959,6 +1054,7 @@ def phase_packed_edges(torch, dev, q, m, packed, codes):
     log("[phase 6] bf16 edge cases, recall@k vs plain bf16: " + ", ".join(cases))
     require(hits / total >= BF16_MIN_RECALL,
             f"packed bf16 edge cases: pooled recall {hits / total} < {BF16_MIN_RECALL}")
+    log("[phase 6] " + packed_width_cases(torch, dev))
 
 
 def phase_packed_kernels(torch, dev, results, n=100_000, d=1024, nq=256):
@@ -994,7 +1090,8 @@ def phase_packed_kernels(torch, dev, results, n=100_000, d=1024, nq=256):
                 ps_, pi, cnt = pk.packed_scan_topk(**args(metric, k, False, True))
                 require(torch.equal(pi, ki) and torch.equal(ps_, ks),
                         f"packed f32 prune {what}: differs from prune off")
-                fracs.append(int(cnt) / pk.prune_units(nq, packed.factors.shape[1], dev))
+                fracs.append(int(cnt) / pk.prune_units(nq, packed.factors.shape[1], dev,
+                                                       use_bf16=False))
                 ab = args(metric, k, True, False)
                 _, bi = pk.packed_scan_topk(**ab)
                 _, pbi = pk.packed_scan_topk_plain(**ab)
@@ -1287,7 +1384,8 @@ def phase_gather_kernels(torch, dev, results, n=100_000, d=1024, nq=256):
                                                         "tile_mask": mask})
                     require(torch.equal(pi, ki) and torch.equal(ps_, ks),
                             f"{what} prune: differs from prune off")
-                    units = pk.prune_units(nq, packed.factors.shape[1], dev, tiles=cnt)
+                    units = pk.prune_units(nq, packed.factors.shape[1], dev, tiles=cnt,
+                                           use_bf16=False)
                     require(int(pc) <= units, f"{what} prune: {int(pc)} > {units} pairs")
                     max_frac = max(max_frac, int(pc) / max(units, 1))
             a = {**args(Metric.L2, 10, False, False), "tile_mask": mask}
@@ -2446,7 +2544,9 @@ def query_groups(torch, dev, ctx, groups, nq_small, cells, path, nprobe=50, k=10
                     wall, busy, kernels, per_kernel, runtime = profile_fn(
                         torch, lambda: index._search(qg, k, nprobe, ng))
                     gather = sum(ms for kname, ms in per_kernel.items()
-                                 if "packed_scan_kernel" in kname)
+                                 if any(kn in kname for kn in PACKED_KERNELS))
+                    require(gather > 0, f"{name} Q={nq} G={g}: the profile names no packed "
+                                        f"scan kernel {PACKED_KERNELS}")
                     syncs = sum(c for rname, c in runtime.items() if "Synchronize" in rname)
                     log(f"[profile] query groups, {name} Q={nq} G={g}: wall {wall:.3f} ms, "
                         f"device busy {busy:.3f} ms (gather kernel {gather:.3f}), idle share "
@@ -3457,7 +3557,8 @@ def main() -> int:
     hmma = sass_hmma(lib_path)
     log(f"[phase 2] tensor-core instructions (HMMA, HGMMA) in the scan kernels' SASS "
         f"(cuobjdump -sass): {hmma}")
-    require(hmma.get("bf16", 0) > 0, "the bf16 packed kernel does not reach the tensor cores")
+    require(all(hmma.get(f"bf16 {w}", 0) > 0 for w in (64, 128)),
+            "the bf16 packed kernel does not reach the tensor cores at every width")
     require(all(hmma.get(f"pq decode {kind}{f}", 0) > 0 for kind in ("", "mma ")
                 for f in ("score_all", "fused")),
             "the PQ decode route does not reach the tensor cores")

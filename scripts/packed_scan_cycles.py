@@ -1,20 +1,30 @@
 #!/usr/bin/env python3
-"""Where the packed kernel's time goes, in SM cycles, on one CUDA card.
+"""Where the packed kernel's bf16 time goes, in SM cycles, on one CUDA card.
 
     python3 scripts/packed_scan_cycles.py [--big]
 
 Builds a copy of ``vq_tpu_torch/csrc`` into a temporary directory with
-``clock64()`` counters added to ``packed_scan_kernel`` (thread 0 of each
-block, summed over blocks with atomics; the repository's sources are not
-touched) and runs the kernel through ``packed_scan_topk`` on chip_smoke.py's
-phase-6 corpus (N=100,000 lognormal rows, D=1024, Q=256, L2, the four
-configurations, k=10 and 100, bf16 and f32); with ``--big`` also on its
-phase-7 SAQ corpus (N=1,048,576, norm-ordered and order-preserving caches).
-For each call it prints, per 128-row row tile, the cycles of the stage loop
-(dequantization and products), the epilogue (scores and admission) and the
-fold; per stage, the work and the barrier; the folds a row tile and their
-mean candidate count; and the call's CUDA-event time (median of 5) with the
-counters in.  The counters add a few percent to the kernel's time.
+``clock64()`` counters added to ``packed_scan_bf16_kernel`` (thread 0 of
+each block's consumers and lane 0 of its producer warp, summed over blocks
+with atomics; the repository's sources are not touched) and runs the kernel
+through ``packed_scan_topk`` on two shapes of the benchmark's SAQ cells,
+made from seeded random words with the 53M cell's segment plan ((64, 5),
+(64, 4), (320, 3), (256, 2) bits, uniform, 704 dims, L2): 4,194,304 rows at
+Q=64 with the prune on (the 53M cell's call, a 64-query tile) and 1,048,576
+rows at Q=1024 through a 98.5% tile mask (the IVF cell's, 128-query tiles),
+both at k=10; then chip_smoke.py's phase-6 corpus (N=100,000 lognormal rows,
+D=1024, Q=256, the five configurations, k=10 and 100).  With ``--big`` also
+its phase-7 SAQ corpus (N=1,048,576, norm-ordered and order-preserving).
+
+For each call it prints, for each consumer warpgroup, per pass (256 rows
+of a tile for one query tile): the waits for a stage's words (the
+producers behind), the dequantization, the wgmma issue and wait (the tensor
+cores behind), the waits at a pass's start, the cuts and their barrier (the
+other warpgroup's lag), the scores and admission, the appends and folds;
+per group (one m64 tile's k-step) the dequant and wgmma cycles; per stage
+of the producers: the waits for a free slot (the consumers behind) and the
+copies' issue; and the call's CUDA-event time (median of 5) with the
+counters in.
 
 The counters are inserted at source lines this script names; it fails if
 one is missing, so it has to follow edits of those lines.
@@ -33,40 +43,87 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-# (anchor, replacement) pairs; ``_P(i, t)`` adds the cycles since t to counter
-# i and restarts t
-_DECL = ("namespace {\n\nconstexpr int kThreads",
-         "__device__ unsigned long long g_cyc[16];\nnamespace {\n\nconstexpr int kThreads")
+
+def _add(i: int, what: str) -> str:
+    """Add `what` to consumer counter i of thread 0 (warpgroup 0) or 128
+    (warpgroup 1), kept 16 apart, in the block's shared copy."""
+    return (f"if (threadIdx.x == 0 || threadIdx.x == 128) "
+            f"s_cyc[{i} + 16 * (threadIdx.x >> 7)] += (unsigned long long)({what});")
 
 
-def _P(i: int, t: str) -> str:
-    return (f"if (tid == 0) atomicAdd(&g_cyc[{i}], (unsigned long long)(clock64() - {t})); "
-            f"{t} = clock64();")
+def _prod(i: int, what: str) -> str:
+    """Add `what` to producer counter i (thread 0 of the producers)."""
+    return f"if (threadIdx.x == kCThreads) s_cyc[{i}] += (unsigned long long)({what});"
 
 
+def _flush(lo: int, hi: int, who: str) -> str:
+    """Add the block's counters [lo, hi) to the totals (one thread)."""
+    return (f"if ({who}) for (int c = {lo}; c < {hi}; ++c) "
+            f"atomicAdd(&g_cyc[c], s_cyc[c]);")
+
+
+# consumer counters, per warpgroup: 0 pass-start waits, 1 stage waits, 2
+# dequant, 3 wgmma (per m64 tile's group), 4 the cuts and their barrier
+# (the other warps' lag), 5 scores and admission, 6 appends, folds and
+# their barriers, 7 passes, 8 groups, 9 passes that ran a fold, 10 whole
+# passes; producers: 32 slot waits, 33 copy issue, 34 stages, 35 factor
+# waits.  Each block sums them in shared memory, one thread a counter
+# range, and adds them to the totals as it ends.
 _EDITS = [
-    _DECL,
-    ("      // the row terms' loads stay",
-     "      long long t_rt = clock64();\n      // the row terms' loads stay"),
-    ("      while (true) {", "      long long t_s = clock64();\n      while (true) {"),
-    ("        if (ahead && tid < kTR) scale_s[(ns + 1) & 1][tid] = sc;\n        __syncthreads();",
-     "        if (ahead && tid < kTR) scale_s[(ns + 1) & 1][tid] = sc;\n        " + _P(12, "t_s")
-     + "\n        __syncthreads();\n        " + _P(13, "t_s")
-     + "\n        if (tid == 0) atomicAdd(&g_cyc[14], 1ull);"),
-    ("      if (tid < kTR) term_s[tid] = term;",
-     "      " + _P(2, "t_rt") + "\n      if (tid < kTR) term_s[tid] = term;"),
-    ("      for (int j = warp; j < nq; j += kWarps) {",
-     "      " + _P(3, "t_rt") + "\n      for (int j = warp; j < nq; j += kWarps) {"),
-    ("        if (nc > 0) {\n          const float kth = warp_merge_sorted(",
-     "        if (nc > 0) {\n          if (lane == 0) { atomicAdd(&g_cyc[0], (unsigned long long)nc);"
-     " atomicAdd(&g_cyc[1], 1ull); }\n          const float kth = warp_merge_sorted("),
-    ("      __syncthreads();\n    }\n  }\n  const int chunks = gridDim.y;",
-     "      __syncthreads();\n      if (tid == 0) { atomicAdd(&g_cyc[4], (unsigned long long)"
-     "(clock64() - t_rt)); atomicAdd(&g_cyc[6], 1ull); }\n    }\n  }\n"
-     "  const int chunks = gridDim.y;"),
+    ("namespace {\n\nconstexpr int kTile",
+     "__device__ unsigned long long g_cyc[40];\n__shared__ unsigned long long s_cyc[40];\n"
+     "namespace {\n\nconstexpr int kTile"),
+    ("constexpr size_t kSmemCap = 232448;",  # room for the counters' static shared memory
+     "constexpr size_t kSmemCap = 232448 - 1024;"),
+    ("  if (tid == 0) {\n    for (int i = 0; i < kMaxStages; ++i) {",
+     "  if (tid == 0) for (int c = 0; c < 40; ++c) s_cyc[c] = 0;\n"
+     "  if (tid == 0) {\n    for (int i = 0; i < kMaxStages; ++i) {"),
+    ("    p.cand_i[o] = fi[j * kbuf + r];\n  }\n}\n",
+     "    p.cand_i[o] = fi[j * kbuf + r];\n  }\n  " + _flush(0, 16, "tid == 0") + "\n  "
+     + _flush(16, 32, "tid == 128") + "\n}\n"),
+    ("    mbar_arrive(full + slot);\n    return;\n  }",
+     "    mbar_arrive(full + slot);\n    " + _flush(32, 40, "tid == kCThreads") + "\n    return;\n  }"),
+    ("  const KWords<W, KIND, BEFF> kw(v, ws, c);",
+     "  long long t_k = clock64();\n  const KWords<W, KIND, BEFF> kw(v, ws, c);"),
+    ("    dequant_tile<W, KIND, BEFF>(v, kw, sg, lv, dim0, mt, a);",
+     "    dequant_tile<W, KIND, BEFF>(v, kw, sg, lv, dim0, mt, a);\n    "
+     + _add(2, "clock64() - t_k") + " " + _add(8, "1") + "\n    t_k = clock64();"),
+    ("    wgmma_wait<1>();\n    fence_regs(other);",
+     "    wgmma_wait<1>();\n    fence_regs(other);\n    " + _add(3, "clock64() - t_k")
+     + "\n    t_k = clock64();"),
+    ("    mbar_wait(full + slot, (ps.it / p.stages) & 1);",
+     "    long long t_w = clock64();\n    mbar_wait(full + slot, (ps.it / p.stages) & 1);\n    "
+     + _add(1, "clock64() - t_w")),
+    ("    mbar_wait(full + slot0, (ps.it / S) & 1);",
+     "    long long t_top = clock64();\n    mbar_wait(full + slot0, (ps.it / S) & 1);"),
+    ("    if (pass == 0 && p.fac_smem) mbar_wait(ffull + fsl, (nt >> 1) & 1);",
+     "    if (pass == 0 && p.fac_smem) mbar_wait(ffull + fsl, (nt >> 1) & 1);\n    "
+     + _add(0, "clock64() - t_top")),
+    ("    // epilogue: the cuts with the published k-th as it stands now",
+     "    long long t_ep = clock64();\n    " + _add(7, "1")
+     + "\n    // epilogue: the cuts with the published k-th as it stands now"),
+    ("                          : INFINITY;\n    named_sync(kBarConsumer, kCThreads);",
+     "                          : INFINITY;\n    named_sync(kBarConsumer, kCThreads);\n    "
+     + _add(4, "clock64() - t_ep") + "\n    t_ep = clock64();"),
+    ("    bool any = false;",
+     "    " + _add(5, "clock64() - t_ep") + "\n    t_ep = clock64();\n    bool any = false;"),
+    ("      fold(kFoldAt);\n      named_sync(kBarConsumer, kCThreads);\n    }\n",
+     "      fold(kFoldAt);\n      named_sync(kBarConsumer, kCThreads);\n      " + _add(9, "1")
+     + "\n    }\n    " + _add(6, "clock64() - t_ep") + "\n"),
+    ("    if (++pass == kPasses) {",
+     "    " + _add(10, "clock64() - t_top") + "\n    if (++pass == kPasses) {"),
+    ("            mbar_wait(empty + slot, ((it / S) & 1) ^ 1);",
+     "            long long t_e = clock64();\n            mbar_wait(empty + slot, ((it / S) & 1) ^ 1);\n"
+     "            " + _prod(32, "clock64() - t_e") + " " + _prod(34, "1")
+     + "\n            t_e = clock64();"),
+    ("            cp_async_mbar_arrive(full + slot);\n",
+     "            cp_async_mbar_arrive(full + slot);\n            " + _prod(33, "clock64() - t_e") + "\n"),
+    ("        mbar_wait(fempty + fs, ((nt >> 1) & 1) ^ 1);",
+     "        long long t_fe = clock64();\n        mbar_wait(fempty + fs, ((nt >> 1) & 1) ^ 1);\n        "
+     + _prod(35, "clock64() - t_fe")),
     ('extern "C" {\n',
      'extern "C" {\nint vq_cycles_read(unsigned long long* out) { cudaDeviceSynchronize(); '
-     'int e = cudaMemcpyFromSymbol(out, g_cyc, sizeof(g_cyc)); unsigned long long z[16] = {}; '
+     'int e = cudaMemcpyFromSymbol(out, g_cyc, sizeof(g_cyc)); unsigned long long z[40] = {}; '
      'cudaMemcpyToSymbol(g_cyc, z, sizeof(z)); return e; }\n'),
 ]
 
@@ -94,20 +151,58 @@ def build_counted(tmp: Path):
 def report(torch, cs, read, tag, args) -> None:
     from vq_tpu_torch.kernels import packed_scan as pk
 
-    buf = (ctypes.c_ulonglong * 16)()
+    buf = (ctypes.c_ulonglong * 40)()
     for _ in range(2):  # the second call's counters
         pk.packed_scan_topk(**args)
         torch.cuda.synchronize()
         if read(buf) != 0:
             raise RuntimeError("reading the cycle counters failed")
     v = list(buf)
-    rt, st, folds = max(v[6], 1), max(v[14], 1), max(v[1], 1)
     ms = cs.cuda_ms(torch, lambda: pk.packed_scan_topk(**args))
-    print(f"{tag}: cycles per row tile: stages {v[2] / rt:.0f}, epilogue {v[3] / rt:.0f}, "
-          f"fold {v[4] / rt:.0f}; per stage: work {v[12] / st:.0f}, barrier {v[13] / st:.0f}; "
-          f"{v[1] / rt:.1f} folds a row tile, mean {v[0] / folds:.1f} candidates; "
-          f"{v[6]} row tiles; {ms:.3f} ms with the counters (CUDA events, median of 5)",
-          flush=True)
+    width = pk.scan_width(args["q_cat"].shape[0])
+    parts = []
+    for wg in (0, 1):
+        c = v[16 * wg:16 * wg + 16]
+        ps, ks = max(c[7], 1), max(c[8], 1)
+        parts.append(
+            f"warpgroup {wg} per pass: {c[10] / ps:.0f} in all = stage waits {c[1] / ps:.0f} + "
+            f"dequant {c[2] / ps:.0f} + wgmma {c[3] / ps:.0f} + pass-start waits "
+            f"{c[0] / ps:.0f} + cuts {c[4] / ps:.0f} + scores {c[5] / ps:.0f} + appends and "
+            f"folds {c[6] / ps:.0f} ({c[9] / ps:.2f} folding) + the rest; per group "
+            f"dequant {c[2] / ks:.0f}, wgmma {c[3] / ks:.0f}")
+    st = max(v[34], 1)
+    print(f"{tag} (width {width}, {v[7]} passes, {v[8]} groups): " + "; ".join(parts)
+          + f"; producer per stage: slot waits {v[32] / st:.0f}, copy issue {v[33] / st:.0f}, "
+          f"factor waits per tile {2 * v[35] / max(v[7], 1):.0f}; "
+          f"{ms:.3f} ms with "
+          f"the counters (CUDA events, median of 5)", flush=True)
+
+
+def cell_corpus(torch, dev, n, seed=5):
+    """Seeded random words of the 53M cell's segment plan over n rows, its
+    factor layout (4 scales, 4 shifts, a norm) and tile stats that never
+    prune; and a maker of packed_scan_topk arguments for nq queries."""
+    from vq_tpu_torch.kernels import packed_scan as pk
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    plan = ((5, 64), (4, 64), (3, 320), (2, 256))
+    segs = tuple(pk.make_segspec(b, ln, "uniform", s) for s, (b, ln) in enumerate(plan))
+    words = tuple(torch.randint(-2**31, 2**31 - 1, (n // sp.u, sp.ln), generator=g, device=dev,
+                                dtype=torch.int32) for sp in segs)
+    fac = torch.rand((9, n), generator=g, device=dev) * 0.1 + 0.02
+    stats = torch.zeros((n // 512, 5), device=dev)
+    stats[:, 1] = 1e3
+    stats[:, 3] = stats[:, 4] = 1.0
+
+    def args(nq, k, prune=False, tile_mask=None):
+        q = torch.randn((nq, 704), generator=g, device=dev) * 0.05
+        qp = torch.stack([torch.full((nq,), 1e6, device=dev), torch.ones((nq,), device=dev)], 1)
+        return dict(q_cat=q, qa=torch.randn((nq,), generator=g, device=dev), words=words,
+                    factors=fac, lv_tables=(), segs=segs, k=k, family="seg", metric_kind="l2",
+                    norm_col=8, r2_cols=(4, 5, 6, 7), limit=None, use_bf16=True, prune=prune,
+                    tile_stats=stats if prune else None, qprune=qp if prune else None,
+                    tile_mask=tile_mask)
+    return args
 
 
 def main() -> int:
@@ -126,12 +221,21 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     with tempfile.TemporaryDirectory() as tmp:
         read = build_counted(Path(tmp))
+        args = cell_corpus(torch, dev, 1 << 22)
+        report(torch, cs, read, "N=4194304 53M plan Q=64 L2 k=10 prune", args(64, 10, prune=True))
+        del args
+        args = cell_corpus(torch, dev, 1 << 20)
+        g = torch.Generator(device=dev).manual_seed(6)
+        mask = (torch.rand((2048,), generator=g, device=dev) < 0.985).to(torch.int32)
+        report(torch, cs, read, "N=1048576 53M plan Q=1024 L2 k=10 98.5% tile mask",
+               args(1024, 10, tile_mask=mask))
+        del args
+        torch.cuda.empty_cache()
         x, q, _ = corpora.packed_corpus(100_000, 1024, 256, seed=11, device=dev, lognormal=True)
         for tag, args, _, _, _ in cs.packed_configs(torch, x, q, torch.linalg.norm(x, dim=1)):
             for k in (10, 100):
-                for bf16 in (True, False):
-                    report(torch, cs, read, f"N=100000 {tag} L2 k={k} {'bf16' if bf16 else 'f32'}",
-                           args(Metric.L2, k, bf16, False))
+                report(torch, cs, read, f"N=100000 {tag} Q=256 L2 k={k}",
+                       args(Metric.L2, k, True, False))
         del x, q
         if "--big" in sys.argv:
             x, q, _ = corpora.packed_corpus(1_048_576, 1024, 256, 0, dev)
@@ -142,7 +246,7 @@ def main() -> int:
                                                                     norms=norms, sort_rows=True)),
                                 ("order-preserving", saq.prepare_tile_cache(codes, norms=norms))):
                 for nq, k in ((256, 10), (256, 100), (8, 100)):
-                    report(torch, cs, read, f"N=1048576 SAQ {name} Q={nq} L2 k={k} bf16",
+                    report(torch, cs, read, f"N=1048576 SAQ {name} Q={nq} L2 k={k}",
                            sq.packed_scan_args(saq.plan, saq.params, q[:nq], cache, k, Metric.L2))
     return 0
 

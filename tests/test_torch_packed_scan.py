@@ -312,3 +312,26 @@ def test_grid_chunks_splits_the_tiles(qblocks, k):
 def test_grid_chunks_one_chunk_when_query_blocks_fill_the_slots(qblocks):
     assert tps.grid_chunks(132, qblocks, 2048, 4096, 10) == 1
     assert tps.merge_groups(1, 4096, 128) == 0
+
+
+@pytest.mark.parametrize("num_q", [1, 63, 64, 65, 256, 1024, 5000])
+def test_scan_width_rule(num_q):
+    """The bf16 kernel's query-tile width: 64 up to 64 queries (one block
+    for the 53M cell's batches), then tiles of 128, and the prune's work
+    units counted in blocks of that width.  Whether a width fits a block's
+    shared memory is the library's to say (``vq_packed_blocks_per_sm``,
+    asked on the card for each width)."""
+    w = tps.scan_width(num_q)
+    assert w in tps.SCAN_WIDTHS
+    assert w == {1: 64, 63: 64, 64: 64, 65: 128, 256: 128, 1024: 128, 5000: 128}[num_q]
+    assert w >= min(num_q, tps.SCAN_WIDTHS[-1])
+    units = tps.prune_units(num_q, 4 * tps.TILE, "cuda")
+    assert units == -(-num_q // w) * 4
+
+
+def test_reset_launch_counts_clears_the_width_counter():
+    tps.packed_scan_topk.launches_by_width[64] = 3
+    tps.packed_scan_topk.launches += 1
+    tps.reset_launch_counts()
+    assert tps.packed_scan_topk.launches_by_width == {}
+    assert tps.packed_scan_topk.launches == 0 and tps.packed_scan_topk.gather_launches == 0

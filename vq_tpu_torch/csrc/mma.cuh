@@ -1,6 +1,6 @@
-// Tensor-core device code shared by the scan kernels (packed_scan.cu,
-// pq_scan.cu): ldmatrix, mma.sync.m16n8k16 with bf16 operands and f32
-// accumulators, and the product of one shared-memory stage.
+// Tensor-core device code of the PQ scan kernels (pq_scan.cu): ldmatrix,
+// mma.sync.m16n8k16 with bf16 operands and f32 accumulators, and the
+// product of one shared-memory stage.
 //
 // A stage holds two bf16 tiles, K-contiguous with a row stride of SA
 // elements (SA = KDK + 8, 144 bytes at KDK = 64, so ldmatrix reads 8 rows

@@ -404,78 +404,6 @@ decode_mma_kernel(const __grid_constant__ DecodeParams p) {
   }
 }
 
-// One compare-exchange step of a warp's bitonic network over 128 entries,
-// entry e = 32 u + lane in register u: e and e ^ stride exchange into
-// ranks_before order where (e & size) == 0, the reverse elsewhere.  Called
-// from fully unrolled loops, so stride and size are constants.
-__device__ __forceinline__ void bitonic_step(float (&s)[4], int (&id)[4], int lane, int size,
-                                             int stride) {
-  float ps[4];
-  int pi[4];
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    ps[u] = stride < 32 ? __shfl_xor_sync(0xffffffffu, s[u], stride) : s[u ^ (stride >> 5)];
-    pi[u] = stride < 32 ? __shfl_xor_sync(0xffffffffu, id[u], stride) : id[u ^ (stride >> 5)];
-  }
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int e = 32 * u + lane;
-    const bool first = ((e & size) == 0) == ((e & stride) == 0);  // e keeps the one ranking first
-    if (first ? ranks_before(ps[u], pi[u], s[u], id[u]) : ranks_before(s[u], id[u], ps[u], pi[u])) {
-      s[u] = ps[u];
-      id[u] = pi[u];
-    }
-  }
-}
-
-// One warp merges nc <= 128 candidates (cs, ci) into the sorted top-k at
-// s[0, k), k <= 128, in registers: the candidates are sorted by a bitonic
-// network, the better of top-k entry i and candidate 127 - i is kept (the
-// first 128 of both lists, a bitonic sequence), that is sorted, and its
-// first k written back.  Returns the new k-th score.  The lists may live in
-// global memory: one load and one store an entry.
-__device__ __forceinline__ float warp_fold_regs(float* s, int* id, int k, const float* cs,
-                                                const int* ci, int nc, int lane) {
-  float cand_s[4], top_s[4];
-  int cand_i[4], top_i[4];
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int e = 32 * u + lane;
-    cand_s[u] = e < nc ? cs[e] : -INFINITY;
-    cand_i[u] = e < nc ? ci[e] : INT_MAX;
-    top_s[u] = e < k ? s[e] : -INFINITY;
-    top_i[u] = e < k ? id[e] : INT_MAX;
-  }
-#pragma unroll
-  for (int size = 2; size <= 128; size <<= 1)
-#pragma unroll
-    for (int stride = size >> 1; stride > 0; stride >>= 1) bitonic_step(cand_s, cand_i, lane, size, stride);
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const float rv = __shfl_sync(0xffffffffu, cand_s[3 - u], 31 - lane);
-    const int ri = __shfl_sync(0xffffffffu, cand_i[3 - u], 31 - lane);
-    if (ranks_before(rv, ri, top_s[u], top_i[u])) {
-      top_s[u] = rv;
-      top_i[u] = ri;
-    }
-  }
-#pragma unroll
-  for (int stride = 64; stride > 0; stride >>= 1) bitonic_step(top_s, top_i, lane, 128, stride);
-  __syncwarp();
-  float kth = -INFINITY;
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int e = 32 * u + lane;
-    if (e < k) {
-      s[e] = top_s[u];
-      id[e] = top_i[u];
-    }
-    if ((k - 1) >> 5 == u) kth = __shfl_sync(0xffffffffu, top_s[u], (k - 1) & 31);
-  }
-  __syncwarp();
-  return kth;
-}
-
 // Shared memory of a wgmma decode block: a ring of `stages` (row tile,
 // query tile) stage pairs, the row tile's codes (M <= kMaxStagedM), the
 // fold's per-query thresholds and counts, the ring's barriers; 1 KB to

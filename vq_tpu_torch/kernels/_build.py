@@ -110,10 +110,12 @@ _SIGNATURES = {
     "vq_packed_queries_per_block": [],
     "vq_packed_max_segments": [],
     "vq_ordered_neg_inf": [],
-    "vq_packed_blocks_per_sm": [_P, _I, _I],
+    "vq_packed_blocks_per_sm": [_P, _I, _I, _I, _I, _I],
     "vq_packed_stage_dims": [],
+    "vq_packed_fold_slots": [],
     "vq_packed_scan_topk": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P,
-                            _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                            _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                            _P],
 }
 
 

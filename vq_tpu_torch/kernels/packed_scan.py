@@ -39,8 +39,11 @@ survives.  ``mask_cap`` (the TPU kernel's static short-grid cap) is taken
 for API parity and never changes a result; the card's grid splits the
 device-side count, so it sizes nothing there.
 
+bf16 launches take the query-tile width ``scan_width(Q)`` (64 or 128
+queries a block of the wgmma kernel); f32 launches blocks of 64.
 ``packed_scan_topk.launches`` counts launches of the dense kernel,
-``packed_scan_topk.gather_launches`` those of the gather mode.
+``packed_scan_topk.gather_launches`` those of the gather mode, and
+``packed_scan_topk.launches_by_width`` the bf16 launches of either by width.
 """
 
 from __future__ import annotations
@@ -62,6 +65,25 @@ _METRICS = {"l2": 0, "ip": 1, "nip": 2}
 _FAMILIES = {"seg": 0, "rabitq": 1}
 _PLAIN_ELEMS = 1 << 26  # plain twin: cap on one (Q, rows) score block
 _WAVES = 4  # kernel blocks per resident block slot the chunking aims for
+SCAN_WIDTHS = (64, 128)  # query-tile widths of the bf16 kernel (csrc/packed_scan.cu)
+
+
+def scan_width(num_q: int) -> int:
+    """The bf16 kernel's query-tile width for Q queries: the narrowest of
+    ``SCAN_WIDTHS`` that covers min(Q, widest); past the widest, Q splits
+    into tiles of the widest.  A block dequantizes each row once for its
+    width of queries (a batch: N·D·⌈Q/width⌉ values) and holds 256 rows ×
+    width queries of f32 sums (a 512-row tile in two passes).  Measured
+    (H100, 1,048,576 rows of the 53M cell's segment plan, Q=1024; PERF.md):
+    a 128-query tile took 8.37 ms through a 98.5% tile mask and 10.67 ms
+    dense at k=100, a 256-query one (128 sums a thread) 9.76 and 13.53.
+    At Q ≤ 64 (8,388,608 rows of the same plan, H100 700 W) the 64-query
+    tile took 5.53-5.80 ms at Q=64 k=10 with the prune on, the 128-query
+    one 7.09-7.27; at Q=8 5.12-5.16 against 6.73-6.85; at Q=64 k=100
+    7.31-7.46 against 8.95-9.08.  k takes no shared memory (the top-k lists live in a global scratch), so
+    the rule reads Q alone."""
+    need = min(max(num_q, 1), SCAN_WIDTHS[-1])
+    return next(w for w in SCAN_WIDTHS if w >= need)
 
 
 def _b_eff(bits: int) -> int:
@@ -300,13 +322,17 @@ def packed_scan_topk_plain(q_cat, qa, words, factors, lv_tables, segs, k: int,
 
 
 # ------------------------------------------------------------------- wrapper
-def prune_units(num_q: int, n_pad: int, device, tiles: Optional[int] = None) -> int:
+def prune_units(num_q: int, n_pad: int, device, tiles: Optional[int] = None,
+                use_bf16: bool = True) -> int:
     """The total the prune count is a part of: tiles (plain twin), or
-    (query block, tile) pairs (the CUDA kernel); ``tiles`` = the masked-in
-    count of a gather-mode scan (default: every tile)."""
+    (query block, tile) pairs (the CUDA kernels: blocks of ``scan_width(Q)``
+    queries in bf16, of 64 in f32); ``tiles`` = the masked-in count of a
+    gather-mode scan (default: every tile)."""
     nb = n_pad // TILE if tiles is None else int(tiles)
     if torch.device(device).type != "cuda":
         return nb
+    if use_bf16:
+        return -(-num_q // scan_width(num_q)) * nb
     from vq_tpu_torch.kernels._build import load_library
 
     return -(-num_q // load_library().vq_packed_queries_per_block()) * nb
@@ -395,17 +421,18 @@ def merge_groups(chunks: int, merge_cap: int, k: int) -> int:
     return chunks // g if chunks > g else 0
 
 
-def _chunks(lib, device, desc: np.ndarray, use_bf16: bool, num_q: int, nb: int, k: int) -> int:
+def _chunks(lib, device, desc: np.ndarray, use_bf16: bool, num_q: int, nb: int, k: int,
+            width: int, metric_kind: str, n_r2: int) -> int:
     """``grid_chunks`` at the resident blocks per SM that the library
-    reports for this launch (its shared memory depends on the mode and the
-    level tables)."""
-    per_sm = lib.vq_packed_blocks_per_sm(desc.ctypes.data, desc.shape[0], int(use_bf16))
+    reports for this launch (its shared memory depends on the mode, the
+    width, the segments, the factor columns and the level tables)."""
+    per_sm = lib.vq_packed_blocks_per_sm(desc.ctypes.data, desc.shape[0], int(use_bf16), width,
+                                         _METRICS[metric_kind], n_r2)
     if per_sm < 1:
-        raise RuntimeError("packed_scan_kernel: no block fits on an SM at this launch's "
+        raise RuntimeError("packed_scan_topk: no block fits on an SM at this launch's "
                            "shared memory")
     slots = torch.cuda.get_device_properties(device).multi_processor_count * per_sm
-    return grid_chunks(slots, -(-num_q // lib.vq_packed_queries_per_block()), nb,
-                       lib.vq_merge_cap(), k)
+    return grid_chunks(slots, -(-num_q // width), nb, lib.vq_merge_cap(), k)
 
 
 def compact_tile_mask(tile_mask: torch.Tensor):
@@ -488,7 +515,9 @@ def _launch(q_cat, qa, words, factors, lv_tables, segs, k, family, metric_kind, 
         desc[s] = (w.data_ptr(), lv_ptr, seg.bits, seg.beff, seg.ln, _KINDS[seg.dequant],
                    seg.scale_col, 0)
     r2 = np.asarray(r2_cols or (0,), dtype=np.int32)
-    chunks = _chunks(lib, dev, desc, use_bf16, num_q, n // TILE, k)
+    width = scan_width(num_q) if use_bf16 else lib.vq_packed_queries_per_block()
+    chunks = _chunks(lib, dev, desc, use_bf16, num_q, n // TILE, k, width, metric_kind,
+                     len(r2_cols))
     ncand = num_q * (chunks + merge_groups(chunks, lib.vq_merge_cap(), k)) * k
     cand_s = torch.empty((ncand,), dtype=torch.float32, device=dev)
     cand_i = torch.empty((ncand,), dtype=torch.int32, device=dev)
@@ -499,24 +528,32 @@ def _launch(q_cat, qa, words, factors, lv_tables, segs, k, family, metric_kind, 
     if tile_mask is not None:
         tile_ids, cnt = compact_tile_mask(tile_mask)
         tiles_ptr, cnt_ptr = tile_ids.data_ptr(), cnt.data_ptr()
-    q16_ptr = 0
-    if use_bf16:  # the kernel's scratch of bf16-rounded, zero-padded queries
-        qb, kd = lib.vq_packed_queries_per_block(), lib.vq_packed_stage_dims()
-        q16 = torch.empty((-(-num_q // qb) * qb, sum(-(-s.ln // kd) * kd for s in segs)),
+    q16_ptr = fold_s_ptr = fold_i_ptr = 0
+    if use_bf16:
+        # scratch: the bf16-rounded, zero-padded query tiles; each block's
+        # top-k lists and candidates
+        qblocks, kd = -(-num_q // width), lib.vq_packed_stage_dims()
+        q16 = torch.empty((qblocks * width, sum(-(-s.ln // kd) * kd for s in segs)),
                           dtype=torch.bfloat16, device=dev)
-        q16_ptr = q16.data_ptr()
+        nfold = qblocks * chunks * width * (k + lib.vq_packed_fold_slots())
+        fold_s = torch.empty((nfold,), dtype=torch.float32, device=dev)
+        fold_i = torch.empty((nfold,), dtype=torch.int32, device=dev)
+        q16_ptr, fold_s_ptr, fold_i_ptr = q16.data_ptr(), fold_s.data_ptr(), fold_i.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
     check(lib.vq_packed_scan_topk(
         q_cat.data_ptr(), q16_ptr, qa.data_ptr(), factors.data_ptr(), stats_ptr, qprune_ptr,
         desc.ctypes.data, len(segs), r2.ctypes.data, len(r2_cols), cand_s.data_ptr(),
         cand_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), scanned.data_ptr(),
-        kth_g.data_ptr(), tiles_ptr, cnt_ptr, num_q,
+        kth_g.data_ptr(), tiles_ptr, cnt_ptr, fold_s_ptr, fold_i_ptr, num_q,
         q_cat.shape[1], n, k, lim, _METRICS[metric_kind], _FAMILIES[family], norm_col,
-        int(prune), int(use_bf16), chunks, stream), "vq_packed_scan_topk")
+        int(prune), int(use_bf16), width, chunks, stream), "vq_packed_scan_topk")
     if tile_mask is None:
         packed_scan_topk.launches += 1
     else:
         packed_scan_topk.gather_launches += 1
+    if use_bf16:
+        by_width = packed_scan_topk.launches_by_width
+        by_width[width] = by_width.get(width, 0) + 1
     if prune:
         return out_s, out_i, scanned[0]
     return out_s, out_i
@@ -524,8 +561,10 @@ def _launch(q_cat, qa, words, factors, lv_tables, segs, k, family, metric_kind, 
 
 packed_scan_topk.launches = 0
 packed_scan_topk.gather_launches = 0
+packed_scan_topk.launches_by_width = {}
 
 
 def reset_launch_counts() -> None:
     packed_scan_topk.launches = 0
     packed_scan_topk.gather_launches = 0
+    packed_scan_topk.launches_by_width = {}

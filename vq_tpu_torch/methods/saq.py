@@ -701,7 +701,7 @@ def scan_topk(plan: SAQPlan, params: SAQParams, queries, codes: torch.Tensor, k:
                            use_bf16=use_bf16, prune=prune)
         outs, outi = out[0], out[1]
         if packed is packed_cache:
-            units = prune_units(num_q, packed.factors.shape[1], dev)
+            units = prune_units(num_q, packed.factors.shape[1], dev, use_bf16=use_bf16)
             packed.last_scan = {"scan_units": units,
                                 "tiles_scanned": out[2] if prune else units}
         if packed.perm is not None:
