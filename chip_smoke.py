@@ -782,6 +782,7 @@ def packed_configs(torch, x, q, norms, tile_cache=False):
     scale); SAQ's cache is norm-ordered, or order-preserving with
     ``tile_cache`` (the IVF one); the others keep the rows' order."""
     from vq_tpu_torch import RaBitQConfig, RankAwareConfig, SAQConfig
+    from vq_tpu_torch.methods import packed as pr
     from vq_tpu_torch.methods import rabitq as rb
     from vq_tpu_torch.methods import rankaware as ra
     from vq_tpu_torch.methods import saq as sq
@@ -794,7 +795,7 @@ def packed_configs(torch, x, q, norms, tile_cache=False):
                                    sort_rows=not tile_cache)
 
         def args(metric, k, bf16, prune, limit=None, m=m, packed=packed):
-            return sq.packed_scan_args(m.plan, m.params, q, packed, k, metric,
+            return pr.packed_scan_args(m.packed_route(), q, packed, k, metric,
                                        num_valid=limit, use_bf16=bf16, prune=prune)
         kinds = {s.dequant for s in sq.packed_segspecs(m.plan, m.params)[0]}
         out.append((f"{tag} bits={m.plan.seg_bits}", args, kinds, m, packed))
@@ -803,7 +804,7 @@ def packed_configs(torch, x, q, norms, tile_cache=False):
         packed = rb.prepare_packed(m.params, m.compress(x), bits, norms=norms)
 
         def args(metric, k, bf16, prune, limit=None, m=m, packed=packed, bits=bits):
-            return rb.packed_scan_args(m.params, q, packed, k, metric, bits,
+            return pr.packed_scan_args(m.packed_route(), q, packed, k, metric,
                                        num_valid=limit, use_bf16=bf16, prune=prune)
         out.append((f"RaBitQ B={bits}", args, {rb._packed_segspec(1, bits).dequant}, m,
                     packed))
@@ -811,7 +812,7 @@ def packed_configs(torch, x, q, norms, tile_cache=False):
     packed = ra.prepare_packed(m.params, m.bits, m.layout, m.compress(x), "dense", norms=norms)
 
     def args(metric, k, bf16, prune, limit=None, m=m, packed=packed):
-        return ra.packed_scan_args(m.params, m.bits, q, packed, k, metric, num_valid=limit,
+        return pr.packed_scan_args(m.packed_route(), q, packed, k, metric, num_valid=limit,
                                    use_bf16=bf16, prune=prune)
     segs = ra.packed_segspecs(m.params, m.bits)[0]
     out.append((f"RankAware lloyd bpd=2 {rankaware_segments(segs)}", args,
@@ -999,11 +1000,12 @@ def phase_packed_edges(torch, dev, q, m, packed, codes):
     from vq_tpu_torch import Metric
     from vq_tpu_torch.bench.tolerance import packed_tol
     from vq_tpu_torch.kernels import packed_scan as pk
+    from vq_tpu_torch.methods import packed as pr
     from vq_tpu_torch.methods import saq as sq
 
     n = packed.num_rows
     for k, limit in ((10, 5), (10, n - 777), (1, None), (128, None)):
-        a = sq.packed_scan_args(m.plan, m.params, q, packed, k, Metric.L2, num_valid=limit,
+        a = pr.packed_scan_args(m.packed_route(), q, packed, k, Metric.L2, num_valid=limit,
                                 use_bf16=False)
         ks, ki = pk.packed_scan_topk(**a)
         lim = limit or n
@@ -1016,13 +1018,13 @@ def phase_packed_edges(torch, dev, q, m, packed, codes):
         check_topk_f32(torch, ks, ki, rs, ri, k, packed_tol(a),
                        f"packed edge k={k} limit={limit}")
     small = sq.prepare_packed(m.plan, m.params, codes[:300])  # one tile, 212 pad rows
-    a = sq.packed_scan_args(m.plan, m.params, q, small, 10, Metric.IP, use_bf16=False)
+    a = pr.packed_scan_args(m.packed_route(), q, small, 10, Metric.IP, use_bf16=False)
     ks, ki = pk.packed_scan_topk(**a)
     rs, ri = pk.packed_scan_topk_plain(**{**a, "k": 11})
     check_topk_f32(torch, ks, ki, rs, ri, 10, packed_tol(a), "packed edge N=300")
     same = sq.prepare_packed(m.plan, m.params, codes[:1].repeat(3000, 1))
     for k in (6, 100):  # every row identical → ids 0..k-1 in order
-        a = sq.packed_scan_args(m.plan, m.params, q, same, k, Metric.L2, use_bf16=False)
+        a = pr.packed_scan_args(m.packed_route(), q, same, k, Metric.L2, use_bf16=False)
         require(bool((pk.packed_scan_topk(**a)[1] == torch.arange(k, device=dev)).all()),
                 "packed tie order")
     syn = synthetic_packed(torch, dev, 1000, 65, seed=9)  # two tiles, the last partial
@@ -1035,10 +1037,10 @@ def phase_packed_edges(torch, dev, q, m, packed, codes):
                        f"packed edge segments ln (40, 21, 9, 7) {kind} limit={limit}")
     hits = total = 0
     cases = []
-    for what, a in ([(f"SAQ Q={nq} k={k}", sq.packed_scan_args(m.plan, m.params, q[:nq], packed,
-                                                                k, Metric.L2))
+    for what, a in ([(f"SAQ Q={nq} k={k}", pr.packed_scan_args(m.packed_route(), q[:nq], packed,
+                                                               k, Metric.L2))
                      for nq in (1, 7, 65) for k in (1, 128)] +
-                    [("SAQ N=300 Q=65 IP", sq.packed_scan_args(m.plan, m.params, q[:65], small,
+                    [("SAQ N=300 Q=65 IP", pr.packed_scan_args(m.packed_route(), q[:65], small,
                                                                10, Metric.IP))] +
                     [(f"segments Q={nq} k={k} {kind}",
                       {**syn, "q_cat": syn["q_cat"][:nq], "qa": syn["qa"][:nq], "k": k,
@@ -1145,6 +1147,7 @@ def rankaware_ffd(torch, dev, x, q, norms, m, packed):
     from vq_tpu_torch.bench.tolerance import packed_tol
     from vq_tpu_torch.core.ffd import ffd_layout
     from vq_tpu_torch.kernels import packed_scan as pk
+    from vq_tpu_torch.methods import packed as pr
     from vq_tpu_torch.methods import rankaware as ra
 
     mf = ra.RankAware(dataclasses.replace(m.cfg, packing="ffd"), device=dev)
@@ -1153,7 +1156,7 @@ def rankaware_ffd(torch, dev, x, q, norms, m, packed):
     pf = ra.prepare_packed(mf.params, mf.bits, mf.layout, codes, "ffd", norms=norms)
     require(all(torch.equal(a, b) for a, b in zip(pf.words, packed.words)),
             "RankAware FFD: scan layout differs from the dense packing's")
-    a = ra.packed_scan_args(mf.params, mf.bits, q, pf, 10, Metric.L2, use_bf16=False)
+    a = pr.packed_scan_args(mf.packed_route(), q, pf, 10, Metric.L2, use_bf16=False)
     ks, ki = pk.packed_scan_topk(**a)
     rs, ri = pk.packed_scan_topk_plain(**{**a, "k": 11})
     err, n_sep, _ = check_topk_f32(torch, ks, ki, rs, ri, 10, packed_tol(a),
@@ -1197,6 +1200,7 @@ def phase_saq_main(torch, dev, n=1_048_576, d=1024, nq=256, profile=True):
     from vq_tpu_torch.index.flat import FlatQuantizedIndex
     from vq_tpu_torch.kernels import packed_scan as pk
     from vq_tpu_torch.kernels.adc import exact_topk
+    from vq_tpu_torch.methods import packed as pr
     from vq_tpu_torch.methods import saq as sq
 
     (x, q, sigma), t_gen = wall_s(torch, lambda: corpora.packed_corpus(n, d, nq, 0, dev))
@@ -1225,12 +1229,12 @@ def phase_saq_main(torch, dev, n=1_048_576, d=1024, nq=256, profile=True):
     log(f"[phase 7] packed_scan_topk launches during the SAQ path: {launches}")
     require_launched({"packed_scan_topk": launches}, "the SAQ path never launched")
     require(bool((out[10] == out[100][:, :10]).all()), "k=10 and k=100 searches disagree")
-    _, _, cnt = sq._packed_scan(saq.plan, saq.params, q, cache, 10, Metric.L2, prune=True)
+    _, _, cnt = pr.packed_scan(saq.packed_route(), q, cache, 10, Metric.L2, prune=True)
     units = pk.prune_units(nq, cache.factors.shape[1], dev)
     log(f"[phase 7] prune stage on this corpus: {int(cnt)}/{units} (query block, tile) pairs "
         f"scanned = {int(cnt) / units:.4f}")
     # reference on a query subset: the plain version on the same cache
-    a = sq.packed_scan_args(saq.plan, saq.params, q[:64], cache, 10, Metric.L2)
+    a = pr.packed_scan_args(saq.packed_route(), q[:64], cache, 10, Metric.L2)
     _, ri = pk.packed_scan_topk_plain(**a)
     rec = recall(cache.perm[ri.long()].cpu(), out[10][:64], 10)
     log(f"[phase 7] kernel vs plain (64 queries, bf16) recall@10 = {rec:.4f}")
@@ -1263,7 +1267,7 @@ def phase_saq_main(torch, dev, n=1_048_576, d=1024, nq=256, profile=True):
     banded = pk.packed_scan_topk.launches
     require_launched({"packed_scan_topk": banded}, "the banded path never launched")
     require(torch.equal(res[True][1], res[False][1]), "banded: prune ids differ from dense")
-    _, _, cnt = sq._packed_scan(saq.plan, saq.params, qb, cache, 10, Metric.L2, prune=True)
+    _, _, cnt = pr.packed_scan(saq.packed_route(), qb, cache, 10, Metric.L2, prune=True)
     units = pk.prune_units(nq, cache.factors.shape[1], dev)
     frac = int(cnt) / units
     log(f"[phase 7] banded corpus k=10 (host clock, second of two runs): prune "
@@ -1435,11 +1439,11 @@ def gather_table(torch, dev, saq, codes, norms, q, k=100):
     on an order-preserving cache; dense timed first and last."""
     from vq_tpu_torch import Metric
     from vq_tpu_torch.kernels import packed_scan as pk
-    from vq_tpu_torch.methods import saq as sq
+    from vq_tpu_torch.methods import packed as pr
 
     cache = saq.prepare_tile_cache(codes, norms=norms)
     nb = cache.factors.shape[1] // 512
-    a = sq.packed_scan_args(saq.plan, saq.params, q, cache, k, Metric.L2, use_bf16=True)
+    a = pr.packed_scan_args(saq.packed_route(), q, cache, k, Metric.L2, use_bf16=True)
     cells = [("dense", None)] + [(f"gather {f:.0%}", run_mask(torch, nb, f, seed=7).to(dev))
                                  for f in (1.0, 0.25, 0.05, 0.01)] + [("dense again", None)]
     parts = []
@@ -1489,6 +1493,7 @@ def phase_ivf_main(torch, dev, n=1_048_576, d=1536, nq=256, k_cl=4096, nprobes=(
     from vq_tpu_torch.kernels.adc import _finalize, exact_topk
     from vq_tpu_torch.kernels.kmeans import pairwise_sqdist_xc
     from vq_tpu_torch.kernels.topk import ordered_topk
+    from vq_tpu_torch.methods import packed as pr
     from vq_tpu_torch.methods import saq as sq
     from vq_tpu_torch.methods.rabitq import RaBitQ
 
@@ -1554,7 +1559,7 @@ def phase_ivf_main(torch, dev, n=1_048_576, d=1536, nq=256, k_cl=4096, nprobes=(
     for qq in (q, q[:nq_small]):
         _, probe = ordered_topk(-pairwise_sqdist_xc(qq, index.centroids), nprobes[0])
         mask = tile_mask_from_probes(probe, index.cl_first, index.cl_last, k_cl)
-        a = sq.packed_scan_args(saq.plan, saq.params, qq, index.cache, k, Metric.L2,
+        a = pr.packed_scan_args(saq.packed_route(), qq, index.cache, k, Metric.L2,
                                 use_bf16=False)
         _, _, err = check_gather(torch, a, mask, k,
                                  f"IVF Q={qq.shape[0]} nprobe={nprobes[0]} gather f32")
@@ -1574,7 +1579,7 @@ def phase_ivf_main(torch, dev, n=1_048_576, d=1536, nq=256, k_cl=4096, nprobes=(
         cd = pairwise_sqdist_xc(q, index.centroids)
         probe = ordered_topk(-cd, nprobes[0])[1]
         mask = tile_mask_from_probes(probe, index.cl_first, index.cl_last, k_cl)
-        a = {**sq.packed_scan_args(saq.plan, saq.params, q, index.cache, k, Metric.L2),
+        a = {**pr.packed_scan_args(saq.packed_route(), q, index.cache, k, Metric.L2),
              "tile_mask": mask}
         stages = {
             "routing product": lambda: pairwise_sqdist_xc(q, index.centroids),
@@ -1582,7 +1587,7 @@ def phase_ivf_main(torch, dev, n=1_048_576, d=1536, nq=256, k_cl=4096, nprobes=(
             "mask build": lambda: tile_mask_from_probes(probe, index.cl_first, index.cl_last,
                                                         k_cl),
             "compaction": lambda: pk.compact_tile_mask(mask),
-            "query side (rotations)": lambda: sq.packed_scan_args(saq.plan, saq.params, q,
+            "query side (rotations)": lambda: pr.packed_scan_args(saq.packed_route(), q,
                                                                   index.cache, k, Metric.L2),
             "scan (compaction + gather kernel + merge)": lambda: pk.packed_scan_topk(**a),
         }
@@ -1613,6 +1618,7 @@ def phase_quantizers(torch, dev, n=1_000_000, d=1536, nq=1024, n_ra=1_048_576, d
     from vq_tpu_torch.kernels import packed_scan as pk
     from vq_tpu_torch.kernels import pq_scan as ps
     from vq_tpu_torch.kernels.adc import exact_topk
+    from vq_tpu_torch.methods import packed as pr
     from vq_tpu_torch.methods import rankaware as ra
     from vq_tpu_torch.methods.lvq import LVQ
     from vq_tpu_torch.methods.opq import OPQ
@@ -1675,12 +1681,12 @@ def phase_quantizers(torch, dev, n=1_000_000, d=1536, nq=1024, n_ra=1_048_576, d
     for k in (10, 100):
         out[k] = timed_search(torch, index, q, k, gt, "phase 11 RankAware")
         ms = cuda_ms(torch, lambda: index.search_with_scores(q, k), reps=3, warmup=1)
-        pr = {p_: ra.scan_topk(ram.params, ram.bits, ram.layout, "dense", q, index.codes, k,
-                               Metric.L2, packed_cache=cache, prune_tiles=p_) for p_ in (True,
-                                                                                        False)}
-        require(torch.equal(pr[True][1], pr[False][1]), f"RankAware k={k}: prune ids differ "
-                                                        f"from dense")
-        _, _, cnt = ra._packed_scan(ram.params, ram.bits, q, cache, k, Metric.L2, prune=True)
+        by_prune = {p_: ra.scan_topk(ram.params, ram.bits, ram.layout, "dense", q, index.codes,
+                                     k, Metric.L2, packed_cache=cache, prune_tiles=p_)
+                    for p_ in (True, False)}
+        require(torch.equal(by_prune[True][1], by_prune[False][1]),
+                f"RankAware k={k}: prune ids differ from dense")
+        _, _, cnt = pr.packed_scan(ram.packed_route(), q, cache, k, Metric.L2, prune=True)
         units = pk.prune_units(nq_ra, cache.factors.shape[1], dev)
         log(f"[phase 11] RankAware k={k}: {ms:.3f} ms/search (CUDA events, median of 3); prune "
             f"ids = dense ids; {int(cnt)}/{units} (query block, tile) pairs scanned = "
@@ -2130,7 +2136,7 @@ def phase_sharded(torch, dev, ctx4, ctx7, ctx10, shards=4, nprobe=50, profile=Tr
     from vq_tpu_torch.dist.sharded_packed import chunk_of
     from vq_tpu_torch.index.ivf import IvfQuantizedIndex, chunked_assign, coarse_sample
     from vq_tpu_torch.kernels import packed_scan as pk
-    from vq_tpu_torch.methods import saq as sq
+    from vq_tpu_torch.methods import packed as pr
 
     mesh = make_mesh(devices=[dev] * shards)
     log(f"[phase 13] mesh of {shards} shards on {dev} (one process; devices may repeat)")
@@ -2206,8 +2212,8 @@ def phase_sharded(torch, dev, ctx4, ctx7, ctx10, shards=4, nprobe=50, profile=Tr
     # what the searches above do not show: each shard's prune stage, the
     # factor-column copies of overlap chunks, the merge
     for p, cache in enumerate(ssaq.shards):
-        _, _, cnt = sq._packed_scan(ctx7["saq"].plan, ctx7["saq"].params, q7, cache, 10,
-                                    Metric.L2, prune=True)
+        _, _, cnt = pr.packed_scan(ctx7["saq"].packed_route(), q7, cache, 10,
+                                   Metric.L2, prune=True)
         units = pk.prune_units(q7.shape[0], cache.factors.shape[1], dev)
         log(f"[phase 13] sharded SAQ shard {p}: prune stage k=10 {int(cnt)}/{units} (query "
             f"block, tile) pairs scanned = {int(cnt) / units:.4f}")
@@ -2254,6 +2260,7 @@ def subset_kernel(torch, dev, results, n, d, nq, heads, k1s):
     from vq_tpu_torch.bench import corpora
     from vq_tpu_torch.bench.tolerance import packed_tol
     from vq_tpu_torch.kernels import packed_scan as pk
+    from vq_tpu_torch.methods import packed as pr
     from vq_tpu_torch.methods import saq as sq
 
     t0 = time.perf_counter()
@@ -2273,7 +2280,7 @@ def subset_kernel(torch, dev, results, n, d, nq, heads, k1s):
                 for metric in (Metric.L2, Metric.IP, Metric.NIP):
                     what = (f"subset {seg_ids} k={k1} {metric.name} "
                             f"{'norm-ordered' if sort_rows else 'order-preserving'}")
-                    a = sq.packed_scan_args(m.plan, m.params, q, cache, k1, metric,
+                    a = pr.packed_scan_args(m.packed_route(), q, cache, k1, metric,
                                             seg_ids=seg_ids, use_bf16=False)
                     require([s.scale_col for s in a["segs"]] == list(seg_ids) and
                             (metric != Metric.L2 or
@@ -2296,11 +2303,11 @@ def subset_kernel(torch, dev, results, n, d, nq, heads, k1s):
         f"bf16 recall@k vs plain bf16 {worst_rec:.4f}")
     seg_ids, k1 = subsets[0], k1s[-1]  # the cascade's stage 1 at rerank_factor 10
     (tk, tp, bnd), line = time_packed(
-        torch, sq.packed_scan_args(m.plan, m.params, q, cache, k1, Metric.L2, seg_ids=seg_ids),
+        torch, pr.packed_scan_args(m.packed_route(), q, cache, k1, Metric.L2, seg_ids=seg_ids),
         f"L2 k={k1}")
     tag = f"SAQ uniform segments {seg_ids} k={k1}"
     r["times"][tag], r["bounds"][tag] = (tk, tp), bnd
-    full = sq.packed_scan_args(m.plan, m.params, q, cache, k1, Metric.L2)
+    full = pr.packed_scan_args(m.packed_route(), q, cache, k1, Metric.L2)
     log(f"[phase 15] {tag} times (CUDA events, median of 5): {line}; every segment "
         f"{cuda_ms(torch, lambda: pk.packed_scan_topk(**full)):.3f} ms, bound "
         f"{packed_bound(torch, full)[0]:.4f} ms")
@@ -2326,6 +2333,7 @@ def cascade(torch, dev, results, ctx, heads, rfs, path, profile, k=10):
     from vq_tpu_torch import Metric
     from vq_tpu_torch.kernels import packed_scan as pk
     from vq_tpu_torch.kernels.topk import ordered_topk
+    from vq_tpu_torch.methods import packed as pr
     from vq_tpu_torch.methods import saq as sq
 
     saq, index, gt = ctx["saq"], ctx["index"], ctx["gt"]
@@ -2368,7 +2376,8 @@ def cascade(torch, dev, results, ctx, heads, rfs, path, profile, k=10):
     # rows rebuilt by the full decode, scored by the direct difference
     rf = rfs[-1]
     head = tuple(range(p))
-    s1, cand = sq._packed_scan(plan, params, q, cache, rf * k, Metric.L2, seg_ids=head)
+    route = sq.packed_route(plan, params)
+    s1, cand = pr.packed_scan(route, q, cache, rf * k, Metric.L2, seg_ids=head)
     cand = cache.perm[cand.long()]
     alive = torch.isfinite(s1)
     q_sq = torch.sum(q * q, dim=1)
@@ -2387,7 +2396,7 @@ def cascade(torch, dev, results, ctx, heads, rfs, path, profile, k=10):
         f"full decode where separated (max |Δscore| {err:.3e}, ids equal at {n_sep} separated "
         f"ranks)")
     if profile:
-        a = sq.packed_scan_args(plan, params, q, cache, rf * k, Metric.L2, seg_ids=head)
+        a = pr.packed_scan_args(route, q, cache, rf * k, Metric.L2, seg_ids=head)
         t1 = cuda_ms(torch, lambda: pk.packed_scan_topk(**a))
         t2 = cuda_ms(torch, lambda: sq._saq_rerank(plan, params, q, codes, cand, alive, k,
                                                    Metric.L2, norms=norms, q_sq=q_sq))
@@ -2436,7 +2445,7 @@ def grouped_reference(torch, index, q, k, groups, nprobe, bf16=False):
     from vq_tpu_torch.kernels import packed_scan as pk
     from vq_tpu_torch.kernels.kmeans import pairwise_sqdist_xc
     from vq_tpu_torch.kernels.topk import ordered_topk
-    from vq_tpu_torch.methods import saq as sq
+    from vq_tpu_torch.methods import packed as pr
 
     nq = q.shape[0]
     ng = max(1, min(groups, nq))
@@ -2451,7 +2460,7 @@ def grouped_reference(torch, index, q, k, groups, nprobe, bf16=False):
         mask = tile_mask_from_probes(probe[g], index.cl_first, index.cl_last,
                                      index.centroids.shape[0])
         tiles += int(mask.sum())
-        a = sq.packed_scan_args(saq.plan, saq.params, qp[g], index.cache, k, Metric.L2,
+        a = pr.packed_scan_args(saq.packed_route(), qp[g], index.cache, k, Metric.L2,
                                 use_bf16=bf16)
         s, pos = pk.packed_scan_topk_plain(**{**a, "tile_mask": mask})
         ids[g] = index.ids_sorted[pos.long()].long()

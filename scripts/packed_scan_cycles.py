@@ -214,6 +214,7 @@ def main() -> int:
     import chip_smoke as cs
     from vq_tpu_torch import Metric, SAQConfig
     from vq_tpu_torch.bench import corpora
+    from vq_tpu_torch.methods import packed as pr
     from vq_tpu_torch.methods import saq as sq
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -247,7 +248,7 @@ def main() -> int:
                                 ("order-preserving", saq.prepare_tile_cache(codes, norms=norms))):
                 for nq, k in ((256, 10), (256, 100), (8, 100)):
                     report(torch, cs, read, f"N=1048576 SAQ {name} Q={nq} L2 k={k}",
-                           sq.packed_scan_args(saq.plan, saq.params, q[:nq], cache, k, Metric.L2))
+                           pr.packed_scan_args(saq.packed_route(), q[:nq], cache, k, Metric.L2))
     return 0
 
 

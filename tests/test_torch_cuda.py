@@ -170,7 +170,7 @@ def test_packed_kernel_at_a_partial_query_block(dev):
     """Q = 70: one full 64-query block and a partial one, in bf16 and f32;
     each call launches the kernel once and stays on the card, and the
     gather mode over every tile returns the dense kernel's result."""
-    from vq_tpu_torch.methods import saq as saq_mod
+    from vq_tpu_torch.methods import packed as pr
 
     x = torch.randn((6000, 64), generator=torch.Generator(dev).manual_seed(4), device=dev)
     q = SAQ(SAQConfig(bits_per_dim=2.0, block_dims=16))
@@ -178,8 +178,8 @@ def test_packed_kernel_at_a_partial_query_block(dev):
     every = torch.ones((cache.factors.shape[1] // 512,), dtype=torch.int32, device=dev)
     pk.reset_launch_counts()
     for bf16 in (True, False):
-        a = saq_mod.packed_scan_args(q.plan, q.params, x[:70], cache, 10, Metric.L2,
-                                     use_bf16=bf16)
+        a = pr.packed_scan_args(q.packed_route(), x[:70], cache, 10, Metric.L2,
+                                use_bf16=bf16)
         s, ids = pk.packed_scan_topk(**a)
         assert ids.is_cuda and ids.shape == (70, 10) and bool((ids < 6000).all())
         assert bool(torch.isfinite(s).all())
@@ -412,7 +412,7 @@ def test_kernels_launch_on_their_tensors_card_not_the_current_one(dev):
     """Tensors on cuda:1 while cuda:0 is current: every kernel launches on
     cuda:1 (its attributes, occupancy and launch under the tensors' device)
     and returns what the same call on cuda:0 returns, bit for bit."""
-    from vq_tpu_torch.methods import saq as saq_mod
+    from vq_tpu_torch.methods import packed as pr
 
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA cards")
@@ -422,7 +422,7 @@ def test_kernels_launch_on_their_tensors_card_not_the_current_one(dev):
     x = torch.randn((6000, 64), generator=torch.Generator(d0).manual_seed(13), device=d0)
     sq = SAQ(SAQConfig(bits_per_dim=2.0, block_dims=16))
     cache = FlatQuantizedIndex(sq).fit(x)._scan_cache
-    a0 = saq_mod.packed_scan_args(sq.plan, sq.params, x[:9], cache, 10, Metric.L2)
+    a0 = pr.packed_scan_args(sq.packed_route(), x[:9], cache, 10, Metric.L2)
     mask = (torch.arange(cache.factors.shape[1] // 512, device=d0) % 2).to(torch.int32)
     want = [ps.pq_scan_topk_fused(q, codes, cb, 10), ps.pq_score_all(q, codes, cb),
             pk.packed_scan_topk(**a0), pk.packed_scan_topk(**a0, tile_mask=mask)]

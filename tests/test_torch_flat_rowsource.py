@@ -12,7 +12,7 @@ the flat index's scan counter, on the CPU at small sizes.
 * ``host_sample_rows`` keeps a tensor-returning source's sample a tensor
   and a numpy source's numpy, the same rows by the same draw;
 * ``last_tiles_scanned`` is the plain twin's scanned count of the same
-  search, every unit with the prune off;
+  search, every unit with the prune off, for SAQ, RaBitQ and RankAware;
 * the build's spans.
 """
 
@@ -22,12 +22,15 @@ import numpy as np
 import pytest
 import torch
 
-from vq_tpu_torch import Metric, PQConfig, SAQConfig, SearchConfig
+from vq_tpu_torch import Metric, PQConfig, RaBitQConfig, RankAwareConfig, SAQConfig, SearchConfig
 from vq_tpu_torch.data.sampling import host_sample_rows
 from vq_tpu_torch.index.flat import FlatQuantizedIndex
 from vq_tpu_torch.kernels.packed_scan import TILE, packed_scan_topk_plain, prune_units
+from vq_tpu_torch.methods import packed as pr
 from vq_tpu_torch.methods import saq as tsaq
 from vq_tpu_torch.methods.pq import PQ
+from vq_tpu_torch.methods.rabitq import RaBitQ
+from vq_tpu_torch.methods.rankaware import RankAware
 from vq_tpu_torch.methods.saq import SAQ
 from vq_tpu_torch.utils import trace
 from vqbench.corpora import fullrank_stream
@@ -199,15 +202,26 @@ def test_pq_fits_on_a_row_source(source):
     assert index.last_tiles_scanned == index.last_scan_units == 0
 
 
+PACKED = {"saq": lambda: SAQ(CFG, device="cpu"),
+          "rabitq": lambda: RaBitQ(RaBitQConfig(num_bits=2), device="cpu"),
+          "rankaware": lambda: RankAware(RankAwareConfig(bits_per_dim=2.0), device="cpu")}
+
+
+@pytest.mark.parametrize("method", sorted(PACKED))
 @pytest.mark.parametrize("prune", [True, False])
-def test_last_tiles_scanned_is_the_plain_twins_count(source, prune):
+def test_last_tiles_scanned_is_the_plain_twins_count(source, prune, method):
     """Rows scaled by 0.25-4 give tiles of norm bands the prune can skip
-    (unit rows' bands are too narrow for it here): the plain twin's count
-    of the same search; with the prune's hint off, every unit."""
+    (unit rows' bands are too narrow for it here): shuffled where the
+    layout norm-orders the rows (SAQ), in ascending order where it keeps
+    them (RaBitQ, RankAware).  The count is the plain twin's of the same
+    search; with the prune's hint off, every unit."""
     rows, pool = source
-    x = rows[0:N] * torch.exp2(torch.linspace(-2.0, 2.0, N))[torch.randperm(
-        N, generator=torch.Generator().manual_seed(5))][:, None]
-    index = flat_index().fit(x)
+    quantizer = PACKED[method]()
+    scale = torch.exp2(torch.linspace(-2.0, 2.0, N))
+    if quantizer.norm_order:
+        scale = scale[torch.randperm(N, generator=torch.Generator().manual_seed(5))]
+    index = FlatQuantizedIndex(quantizer, SearchConfig(metric=Metric.L2, use_bf16=True)).fit(
+        rows[0:N] * scale[:, None])
     cache = index.scan_cache
     assert cache.prune_hint
     cache.prune_hint = prune
@@ -216,8 +230,8 @@ def test_last_tiles_scanned_is_the_plain_twins_count(source, prune):
     units = prune_units(NQ, cache.factors.shape[1], "cpu")
     assert index.last_scan_units == units == -(-N // TILE)
     if prune:
-        args = tsaq.packed_scan_args(index.quantizer.plan, index.quantizer.params, pool, cache,
-                                     10, Metric.L2, use_bf16=False, prune=True)
+        args = pr.packed_scan_args(quantizer.packed_route(), pool, cache, 10, Metric.L2,
+                                   use_bf16=False, prune=True)
         assert 0 < index.last_tiles_scanned == int(packed_scan_topk_plain(**args)[2]) < units
     else:
         assert index.last_tiles_scanned == units

@@ -22,6 +22,7 @@ import torch
 
 from vq_tpu.kernels import pallas_packed as jpp
 from vq_tpu_torch import convert
+from vq_tpu_torch.kernels import _build
 from vq_tpu_torch.kernels import packed_scan as tps
 
 torch.set_num_threads(1)
@@ -296,8 +297,8 @@ def test_grid_chunks_splits_the_tiles(qblocks, k):
     slots, cap = 132, 4096
     g = cap // k
     for nb in (1, 7, 196, 2048):
-        chunks = tps.grid_chunks(slots, qblocks, nb, cap, k)
-        groups = tps.merge_groups(chunks, cap, k)
+        chunks = _build.grid_chunks(slots, qblocks, nb, cap, k)
+        groups = _build.merge_groups(chunks, cap, k)
         assert 1 <= chunks <= nb
         if groups:
             assert chunks == groups * g and groups * k <= cap and qblocks * g < slots
@@ -310,8 +311,8 @@ def test_grid_chunks_splits_the_tiles(qblocks, k):
 
 @pytest.mark.parametrize("qblocks", [132, 200, 5000])
 def test_grid_chunks_one_chunk_when_query_blocks_fill_the_slots(qblocks):
-    assert tps.grid_chunks(132, qblocks, 2048, 4096, 10) == 1
-    assert tps.merge_groups(1, 4096, 128) == 0
+    assert _build.grid_chunks(132, qblocks, 2048, 4096, 10) == 1
+    assert _build.merge_groups(1, 4096, 128) == 0
 
 
 @pytest.mark.parametrize("num_q", [1, 63, 64, 65, 256, 1024, 5000])

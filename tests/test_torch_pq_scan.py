@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from vq_tpu.kernels import pallas_scan as jps
+from vq_tpu_torch.kernels import _build
 from vq_tpu_torch.kernels import pq_scan as tps
 
 torch.set_num_threads(1)
@@ -186,7 +187,7 @@ def test_plan_chunks_follow_the_reported_occupancy(route, num_q, k):
     assert 1 <= chunks <= -(-n // rows)
     if k:
         g = 4096 // k
-        groups = tps.merge_groups(chunks, 4096, k)
+        groups = _build.merge_groups(chunks, 4096, k)
         assert chunks * k <= 4096 or (chunks == groups * g and groups <= g)
     if qblocks >= slots:
         assert chunks == 1
@@ -225,7 +226,7 @@ def test_plan_decode_width_is_the_narrowest_instance_covering_q(num_q, want, k):
     assert 1 <= chunks <= -(-n // 128)
     if k:
         g = 4096 // k
-        groups = tps.merge_groups(chunks, 4096, k)
+        groups = _build.merge_groups(chunks, 4096, k)
         assert chunks * k <= 4096 or (chunks == groups * g and groups <= g)
 
 

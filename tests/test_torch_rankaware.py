@@ -29,6 +29,7 @@ from vq_tpu.methods import rankaware as jra
 from vq_tpu_torch import convert
 from vq_tpu_torch.index.flat import FlatQuantizedIndex
 from vq_tpu_torch.kernels import packed_scan as tps
+from vq_tpu_torch.methods import packed as pr
 from vq_tpu_torch.methods import rankaware as tra
 
 from test_torch_flat_index import assert_close_scores, assert_same_ranking
@@ -118,8 +119,8 @@ def test_packed_layout_against_jax_interpret_kernel(data, pair):
     ws, wi = jra._packed_scan(j.params, j.bits, jnp.asarray(q), jp, 10, Metric.L2,
                               interpret=True, use_bf16=False)
     tp = t.prepare_scan(torch.from_numpy(codes))
-    gs, gi = tra._packed_scan(t.params, t.bits, torch.from_numpy(q), tp, 10, tra.Metric.L2,
-                              use_bf16=False)
+    gs, gi = pr.packed_scan(t.packed_route(), torch.from_numpy(q), tp, 10, tra.Metric.L2,
+                            use_bf16=False)
     assert_same_ranking(gi.numpy(), np.asarray(wi), np.asarray(ws))
     assert_close_scores(gs.numpy(), np.asarray(ws))
 

@@ -220,6 +220,7 @@ def exactness_assert(out: dict, run: Run) -> None:
     the kernels ran on CUDA (on the CPU both sides are the plain twin)."""
     from vq_tpu_torch.kernels import packed_scan as pk
     from vq_tpu_torch.kernels import pq_scan as ps
+    from vq_tpu_torch.methods import packed as pr
     from vq_tpu_torch.methods import rabitq as rb_mod
     from vq_tpu_torch.methods import saq as saq_mod
     from vq_tpu_torch.methods.pq import PQ
@@ -247,15 +248,15 @@ def exactness_assert(out: dict, run: Run) -> None:
         cache = m.prepare_scan(m.compress(x), norms=norms)
         for prune in (False, True):
             hold(f"saq/{codebook}{bpd}/prune={prune}",
-                 saq_mod.packed_scan_args(m.plan, m.params, q, cache, k, Metric.L2,
-                                          use_bf16=False, prune=prune))
+                 pr.packed_scan_args(m.packed_route(), q, cache, k, Metric.L2,
+                                     use_bf16=False, prune=prune))
         if codebook == "uniform":
-            hold("saq/nip_prune", saq_mod.packed_scan_args(m.plan, m.params, q, cache, k,
-                                                           Metric.NIP, use_bf16=False,
-                                                           prune=True))
+            hold("saq/nip_prune", pr.packed_scan_args(m.packed_route(), q, cache, k,
+                                                      Metric.NIP, use_bf16=False,
+                                                      prune=True))
             # the gather mode on the order-preserving layout
             tc = m.prepare_tile_cache(m.compress(x), norms=norms)
-            a = saq_mod.packed_scan_args(m.plan, m.params, q, tc, k, Metric.L2, use_bf16=False)
+            a = pr.packed_scan_args(m.packed_route(), q, tc, k, Metric.L2, use_bf16=False)
             nb = tc.factors.shape[1] // pk.TILE
             ones = torch.ones((nb,), dtype=torch.int32, device=dev)
             dense, full = pk.packed_scan_topk(**a), pk.packed_scan_topk(**a, tile_mask=ones)
@@ -267,8 +268,8 @@ def exactness_assert(out: dict, run: Run) -> None:
     for bits in (2, 8):
         mb = rb_mod.RaBitQ(RaBitQConfig(num_bits=bits), device=dev).fit(x)
         cache = mb.prepare_scan(mb.compress(x))
-        hold(f"rabitq{bits}", rb_mod.packed_scan_args(mb.params, q, cache, k, Metric.L2, bits,
-                                                      use_bf16=False))
+        hold(f"rabitq{bits}", pr.packed_scan_args(mb.packed_route(), q, cache, k, Metric.L2,
+                                                  use_bf16=False))
     pq = PQ(PQConfig(num_subquantizers=16, num_bits=8, kmeans=KMeansConfig(iters=5)),
             device=dev).fit(x)
     codes, cb = pq.compress(x), pq.params.codebooks
@@ -297,6 +298,7 @@ def packed_saq_1m(out: dict, run: Run) -> None:
     batch — with its staged counters (``utils/profiling.ScanStats``)."""
     from vq_tpu_torch.kernels import packed_scan as pk
     from vq_tpu_torch.kernels.adc import exact_topk
+    from vq_tpu_torch.methods import packed as pr
     from vq_tpu_torch.methods import saq as saq_mod
     from vq_tpu_torch.utils.profiling import ScanStats
 
@@ -321,7 +323,8 @@ def packed_saq_1m(out: dict, run: Run) -> None:
     # the prune diagnostic: the share of the scan the variance stage let
     # through (tiles in the plain twin, (query block, tile) pairs on the card)
     units = pk.prune_units(nq, cache.factors.shape[1], dev)
-    scanned = saq_mod._packed_scan(plan, params, q, cache, k, Metric.L2, prune=True)[2]
+    route = m.packed_route()
+    scanned = pr.packed_scan(route, q, cache, k, Metric.L2, prune=True)[2]
     out.update(
         saq_packed_qps=nq / best,
         saq_packed_qps_median=nq / med,
@@ -348,7 +351,7 @@ def packed_saq_1m(out: dict, run: Run) -> None:
         out[f"{name}_qps"] = nq / best_pr
         if prune:
             best_prune = best_pr
-    scanned = saq_mod._packed_scan(plan, params, qb, cache, k, Metric.L2, prune=True)[2]
+    scanned = pr.packed_scan(route, qb, cache, k, Metric.L2, prune=True)[2]
     frac = int(scanned) / pk.prune_units(nq, cache.factors.shape[1], dev)
     out["saq_prune_tiles_frac"] = frac
     # the staged counters count whole tiles: the scanned share of them

@@ -143,8 +143,7 @@ def run_study_arrays(
             # on the card — the same path serving uses; methods without a
             # packed layout return None and take the plain scan
             # (reference exact_search.py:4-8 is always the dense path)
-            cache = model.prepare_scan(codes, norms=norms_d,
-                                       num_queries=len(queries))
+            cache = model.prepare_scan(codes, norms=norms_d)
             _, ids = model.scan_topk(
                 qd, codes, min(kmax, n), Metric.NIP, norms=norms_d,
                 cache=cache,

@@ -134,8 +134,7 @@ def flat_index_of(quantizer, codes, norms: np.ndarray, num_rows: int,
                    torch.tensor(np.ascontiguousarray(codes), device=quantizer.device))
     index.norms = _tensor(norms, quantizer.device)
     index.num_rows = int(num_rows)
-    index._scan_cache = quantizer.prepare_scan(index.codes, norms=index.norms,
-                                               num_queries=search_cfg.prepare_queries)
+    index._scan_cache = quantizer.prepare_scan(index.codes, norms=index.norms)
     return index
 
 

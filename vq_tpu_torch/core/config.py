@@ -153,8 +153,9 @@ class SearchConfig:
     use_bf16: bool = True
     # Approximate per-tile top-k: not ported (indexes refuse True).
     approx: bool = False
-    # Expected query-batch size handed to prepare_scan; the card's kernels
-    # take any batch, so the port does not gate on it.
+    # The JAX package's expected query-batch size for its prepare_scan (a
+    # TPU VMEM gate); kept for parity: the card's kernels take any batch,
+    # and nothing of the port reads it.
     prepare_queries: int = 8
 
 

@@ -52,7 +52,7 @@ from vq_tpu_torch.dist.sharded_packed import (
 )
 from vq_tpu_torch.index.base import BaseSearchIndex, nbytes_of
 from vq_tpu_torch.index.ivf import chunked_assign, coarse_pass, encode_rows_ordered
-from vq_tpu_torch.index.ivf_packed import default_mask_cap, tile_mask_from_probes
+from vq_tpu_torch.index.ivf_packed import tile_mask_from_probes
 from vq_tpu_torch.kernels.adc import _finalize
 from vq_tpu_torch.kernels.kmeans import pairwise_sqdist_xc
 from vq_tpu_torch.kernels.packed_scan import TILE, PackedCorpus
@@ -125,9 +125,8 @@ class ShardedIvfPackedIndex(BaseSearchIndex):
         def build(p):
             p_dev, sl = self.mesh.devices[p], slice(p * n_loc, (p + 1) * n_loc)
             with on(p_dev):
-                cache = self._replicas[p].prepare_tile_cache(
-                    put(codes[sl], p_dev), norms=put(norms[sl], p_dev),
-                    num_queries=self.search_cfg.prepare_queries)
+                cache = self._replicas[p].prepare_tile_cache(put(codes[sl], p_dev),
+                                                             norms=put(norms[sl], p_dev))
             if cache is None:
                 raise RuntimeError(f"{self.quantizer.name} has no packed tile cache: use "
                                    "dist.sharded_ivf.ShardedIVFIndex")
@@ -166,7 +165,6 @@ class ShardedIvfPackedIndex(BaseSearchIndex):
         metric = self.search_cfg.metric
         k_cl = int(self.centroids.shape[0])
         n_loc, true_n = self._n_loc, self.num_rows
-        mask_cap = default_mask_cap(n_loc // TILE, nprobe, true_n, k_cl)
         qs, cs = replicate(self.mesh, q), replicate(self.mesh, self.centroids)
 
         def scan(p):
@@ -178,7 +176,7 @@ class ShardedIvfPackedIndex(BaseSearchIndex):
                     qs[p], self.shards[p], k, metric,
                     num_valid=min(max(true_n - p * n_loc, 0), n_loc),
                     use_bf16=self.search_cfg.use_bf16 and bf16_supported(dev),
-                    tile_mask=mask, mask_cap=mask_cap)
+                    tile_mask=mask)
                 gid = self._ids[p][torch.clamp(pos.long(), 0, n_loc - 1)]
             return torch.where(gid < 0, torch.full_like(s, -math.inf), s), gid
 

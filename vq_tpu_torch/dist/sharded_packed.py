@@ -118,7 +118,6 @@ class ShardedPackedFlatIndex(BaseSearchIndex):
             with on(dev):
                 cache = self._replicas[p].prepare_shard_cache(
                     put(codes[sl], dev), norms=put(norms[sl], dev),
-                    num_queries=self.search_cfg.prepare_queries,
                     num_valid_rows=min(max(n - p * n_loc, 0), n_loc))
             if cache is None:
                 raise RuntimeError(f"{self.quantizer.name} has no packed shard cache: serve it "

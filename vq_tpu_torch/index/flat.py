@@ -2,8 +2,8 @@
 
 The corpus stays compressed on the quantizer's device; search is the
 quantizer's ``scan_topk`` (the PQ ADC scan of ``kernels/adc.py``, or the
-packed-code scan of SAQ and RaBitQ over the layout ``prepare_scan`` built
-once at fit).  The original row
+packed-code scan of SAQ, RaBitQ and RankAware over the layout
+``prepare_scan`` built once at fit, ``methods/packed.py``).  The original row
 norms are kept as a 4 B/vector side-channel for the normalized-IP metric.
 
 ``fit`` takes a row source — a tensor, numpy / np.memmap, or any object
@@ -73,8 +73,7 @@ class FlatQuantizedIndex(BaseSearchIndex):
                         as_f32(X[i0:i0 + chunk], self.device), dim=-1)
             self.num_rows = n
             with span("build.pack"):
-                self._scan_cache = self.quantizer.prepare_scan(
-                    self.codes, norms=self.norms, num_queries=self.search_cfg.prepare_queries)
+                self._scan_cache = self.quantizer.prepare_scan(self.codes, norms=self.norms)
         return self
 
     def search_with_scores(self, queries, k: int = 10) -> Tuple[np.ndarray, np.ndarray]:
@@ -94,7 +93,7 @@ class FlatQuantizedIndex(BaseSearchIndex):
         block, tile) pairs on the card, tiles in the plain twin's sequence
         on the CPU; every unit with the variance prune off; 0 where the
         search took no dense packed scan (the cache's ``last_scan``, set by
-        SAQ's scan).  Reading it syncs the device scalar."""
+        ``methods/packed.py::dense_topk``).  Reading it syncs the device scalar."""
         return int(self._last_scan().get("tiles_scanned", 0))
 
     @property
@@ -129,5 +128,4 @@ class FlatQuantizedIndex(BaseSearchIndex):
         self.norms = torch.as_tensor(state["norms"], device=self.device)
         self.num_rows = state["num_rows"]
         self.search_cfg = state["search_cfg"]
-        self._scan_cache = self.quantizer.prepare_scan(
-            self.codes, norms=self.norms, num_queries=self.search_cfg.prepare_queries)
+        self._scan_cache = self.quantizer.prepare_scan(self.codes, norms=self.norms)

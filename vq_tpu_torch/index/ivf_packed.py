@@ -4,7 +4,7 @@
   fit    — coarse k-means (or a shared ``coarse=``), rows sorted by cluster
            (a stable sort), FLAT-encoded (original rows, not residuals),
            packed with the order-preserving tile cache
-           (``methods/base.prepare_tile_cache``).  Per-tile cluster ranges
+           (``prepare_tile_cache``, ``methods/packed.py``).  Per-tile cluster ranges
            (first/last cluster in each 512-row tile) are precomputed.
   search — one matrix product routes each query to its top-nprobe clusters
            (``ordered_topk``: ``lax.top_k``'s order, so the probes equal the
@@ -69,8 +69,9 @@ def tile_mask_from_probes(probes: torch.Tensor, cl_first: torch.Tensor,
 
 def default_mask_cap(nb: int, nprobe: int, num_rows: int, k_cl: int) -> Optional[int]:
     """The JAX package's static short-grid cap (~4× the perfectly coherent
-    nprobe span); None when it would not shorten the grid.  The card's
-    gather kernel takes it and sizes nothing by it."""
+    nprobe span); None when it would not shorten the grid.  Kept for
+    parity: the card's gather kernel sizes nothing by it, so no search of
+    the port computes it."""
     tiles_per_cl = num_rows // (k_cl * TILE) + 1
     cap = int(min(nb, 4 * nprobe * tiles_per_cl + 64))
     return cap if cap < nb else None
@@ -78,7 +79,7 @@ def default_mask_cap(nb: int, nprobe: int, num_rows: int, k_cl: int) -> Optional
 
 class IvfPackedFlatIndex(BaseSearchIndex):
     """Probed-tile packed scan for quantizers with ``prepare_tile_cache`` +
-    ``packed_scan_raw`` (SAQ, RaBitQ)."""
+    ``packed_scan_raw`` (``methods/packed.py``: SAQ, RaBitQ, RankAware)."""
 
     name = "ivf_packed"
 
@@ -124,8 +125,7 @@ class IvfPackedFlatIndex(BaseSearchIndex):
         codes, norms = encode_rows_ordered(
             X, order, torch.zeros((n,), dtype=torch.int32, device=dev),
             torch.zeros((1, d), dtype=torch.float32, device=dev), self.quantizer, chunk)
-        cache = self.quantizer.prepare_tile_cache(
-            codes, norms=norms, num_queries=self.search_cfg.prepare_queries)
+        cache = self.quantizer.prepare_tile_cache(codes, norms=norms)
         if cache is None:
             raise RuntimeError(f"{self.quantizer.name} has no packed tile cache")
         if cache.perm is not None:
@@ -159,19 +159,16 @@ class IvfPackedFlatIndex(BaseSearchIndex):
             q = torch.cat([q, q[-1:].expand(pad, -1)])
         return q, ng, nq
 
-    def _scan_group(self, q: torch.Tensor, probe: torch.Tensor, k: int, nprobe: int):
+    def _scan_group(self, q: torch.Tensor, probe: torch.Tensor, k: int):
         """One tile mask from the probes of ``q`` and one gather-kernel pass
         → maximize-form (scores, scan positions, masked-in tiles as a device
         scalar)."""
         with span("ivf.mask"):
             k_cl = int(self.centroids.shape[0])
-            nb = -(-self.num_rows // TILE)
             mask = tile_mask_from_probes(probe, self.cl_first, self.cl_last, k_cl)
-            cap = default_mask_cap(nb, nprobe, self.num_rows, k_cl)
         s, pos = self.quantizer.packed_scan_raw(
             q, self.cache, k, self.search_cfg.metric,
-            use_bf16=self.search_cfg.use_bf16 and bf16_supported(q.device),
-            tile_mask=mask, mask_cap=cap)
+            use_bf16=self.search_cfg.use_bf16 and bf16_supported(q.device), tile_mask=mask)
         return s, pos, mask.sum()
 
     def _search(self, q: torch.Tensor, k: int, nprobe: int, groups: int = 1):
@@ -185,14 +182,14 @@ class IvfPackedFlatIndex(BaseSearchIndex):
             # sort the batch by nearest cell, so each group's probes cohere;
             # a stable sort, as jnp.argsort: ties decide a query's group
             order = torch.argsort(probe[:, 0], stable=True)
-            parts = [self._scan_group(q[g], probe[g], k, nprobe)
+            parts = [self._scan_group(q[g], probe[g], k)
                      for g in order.reshape(groups, -1)]
             inv = torch.argsort(order)
             s = torch.cat([p[0] for p in parts])[inv]
             pos = torch.cat([p[1] for p in parts])[inv]
             tiles = torch.stack([p[2] for p in parts]).sum()
         else:
-            s, pos, tiles = self._scan_group(q, probe, k, nprobe)
+            s, pos, tiles = self._scan_group(q, probe, k)
         with span("ivf.finalize"):
             gid = self.ids_sorted[torch.clamp(pos.long(), 0, self.ids_sorted.shape[0] - 1)]
             scores, ids = _finalize(s, gid, self.search_cfg.metric, torch.sum(q * q, dim=-1))

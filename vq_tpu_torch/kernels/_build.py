@@ -8,6 +8,10 @@ use, from the sources in the package only, into ``vq_tpu_torch/_build/``
 headers, so an edited source or header is rebuilt and an unchanged one is
 loaded as it is.  A missing ``nvcc`` or a failed compile raises: there is
 no fallback.
+
+The grid rule both scan wrappers (``pq_scan.py``, ``packed_scan.py``) size
+their launches by lives here too, beside the library whose merge cap
+(``vq_merge_cap``) it takes: ``grid_chunks`` and ``merge_groups``.
 """
 
 from __future__ import annotations
@@ -135,3 +139,32 @@ def check(err: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+_WAVES = 4  # kernel blocks per resident block slot the chunking aims for
+
+
+def grid_chunks(slots: int, qblocks: int, nb: int, merge_cap: int, k: int) -> int:
+    """Tile chunks per query block of a (qblocks, chunks) grid over ``slots``
+    resident blocks (SMs × blocks per SM): one when the query blocks alone
+    fill the slots; else enough blocks for _WAVES waves and at most one
+    chunk per tile; beyond one wave, rounded down to whole waves (a last,
+    partial wave leaves most SMs idle while it runs).  A merge launch sorts
+    at most ``merge_cap`` candidates a query, g = merge_cap // k chunk
+    lists.  Where g chunks a query block cannot fill the slots (few
+    queries, large k), the lists merge in groups of g first
+    (``merge_groups``): chunks is then a multiple of g, at most g²."""
+    if qblocks >= slots:
+        return 1
+    g = merge_cap // k
+    cap = g if qblocks * g >= slots else g * g
+    chunks = max(1, min(-(-_WAVES * slots // qblocks), nb, cap))
+    if qblocks * chunks > slots:
+        chunks = max(1, qblocks * chunks // slots * slots // qblocks)
+    return chunks // g * g if chunks > g else chunks
+
+
+def merge_groups(chunks: int, merge_cap: int, k: int) -> int:
+    """First-level merges a query (0: the chunk lists merge in one launch)."""
+    g = merge_cap // k
+    return chunks // g if chunks > g else 0

@@ -4,7 +4,8 @@
 The identity the JAX package builds on holds here too: the ADC scan over
 PQ codes is the exact scan over their reconstructions,
 adc_l2(q, codes) = ‖q − x̂‖², x̂ = decode(codes).  Scores are kept in
-maximize form (2·q·x̂ − ‖x̂‖² for L2, q·x̂ for IP, q·x̂/‖x‖ for NIP) and
+maximize form (2·q·x̂ − ‖x̂‖² for L2, q·x̂ for IP, q·x̂/‖x‖ for NIP;
+``maximize_scores``, which every plain scan of the port scores with) and
 turned back into the metric's value by ``_finalize``.
 
 Routing of ``scan_codes_topk``: a CUDA tensor with K ≤ 256 (uint8 codes)
@@ -103,6 +104,19 @@ def _finalize(scores, idx, metric: Metric, q_sq: Optional[torch.Tensor]):
     return scores, idx
 
 
+def maximize_scores(ip: torch.Tensor, x_sq: Callable[[], torch.Tensor], metric: Metric,
+                    row_norms: Callable[[], torch.Tensor]) -> torch.Tensor:
+    """q·x̂ → the metric's maximize form: 2·ip − ‖x̂‖² (L2), ip (IP),
+    ip / ‖x‖ (NIP).  ``x_sq`` and ``row_norms`` give ‖x̂‖² and the original
+    row norms, in ip's shape or its last axis's; each is called only by the
+    metric that reads it."""
+    if metric == Metric.L2:
+        return 2.0 * ip - x_sq()
+    if metric == Metric.IP:
+        return ip
+    return ip / torch.clamp(row_norms(), min=1e-30)
+
+
 def _col_mask(s: torch.Tensor, start: int, limit: int) -> torch.Tensor:
     col = start + torch.arange(s.shape[1], device=s.device)
     return torch.where(col[None, :] < limit, s, torch.full_like(s, -math.inf))
@@ -182,14 +196,8 @@ def scan_codes_topk(
 
     def score_tile(start):
         dec = decode_pq(cb, codes[start:start + tile])
-        ip = qd @ dec.T
-        if metric == Metric.L2:
-            s = 2.0 * ip - torch.sum(dec * dec, dim=-1)[None, :]
-        elif metric == Metric.IP:
-            s = ip
-        else:  # NIP
-            nt = norms_t[start:start + dec.shape[0]]
-            s = ip / torch.clamp(nt, min=1e-30)[None, :]
+        s = maximize_scores(qd @ dec.T, lambda: torch.sum(dec * dec, dim=-1), metric,
+                            lambda: norms_t[start:start + dec.shape[0]])
         return _col_mask(s, start, limit)
 
     scores, idx = _streaming_topk(score_tile, n, num_q, k, tile, approx=approx)
@@ -224,14 +232,9 @@ def scan_generic_topk(
 
     def score_tile(start):
         dec = decode_fn(codes[start:start + tile]).to(torch.float32)
-        ip = qd @ (round_bf16(dec) if use_bf16 else dec).T
-        if metric == Metric.L2:
-            s = 2.0 * ip - torch.sum(dec * dec, dim=-1)[None, :]
-        elif metric == Metric.IP:
-            s = ip
-        else:
-            nt = norms_t[start:start + dec.shape[0]]
-            s = ip / torch.clamp(nt, min=1e-30)[None, :]
+        s = maximize_scores(qd @ (round_bf16(dec) if use_bf16 else dec).T,
+                            lambda: torch.sum(dec * dec, dim=-1), metric,
+                            lambda: norms_t[start:start + dec.shape[0]])
         return _col_mask(s, start, limit)
 
     scores, idx = _streaming_topk(score_tile, n, num_q, k, tile, approx=approx)
@@ -271,13 +274,8 @@ def exact_topk(
     def score_tile(start):
         st = min(start, n - tile)
         xt = x[st:st + tile].to(torch.float32)
-        ip = queries @ xt.T
-        if metric == Metric.L2:
-            s = 2.0 * ip - torch.sum(xt * xt, dim=-1)[None, :]
-        elif metric == Metric.IP:
-            s = ip
-        else:
-            s = ip / torch.clamp(norms_t[st:st + tile], min=1e-30)[None, :]
+        s = maximize_scores(queries @ xt.T, lambda: torch.sum(xt * xt, dim=-1), metric,
+                            lambda: norms_t[st:st + tile])
         return _col_mask(s[:, start - st:], start, limit)
 
     scores, idx = _streaming_topk(score_tile, n, num_q, k, tile)

@@ -1,7 +1,8 @@
 """Packed-code scan: layout helpers, the CUDA kernel's wrapper and its plain
 PyTorch twin — counterpart of ``vq_tpu/kernels/pallas_packed.py``.
 
-The scan of every non-PQ quantizer with a packed layout (SAQ, RaBitQ):
+The scan of every non-PQ quantizer with a packed layout (SAQ, RaBitQ,
+RankAware; their one search route is ``methods/packed.py``):
 per-dimension B-bit codes plus per-row float factors.  A segment's (N, ln)
 indices are stored as "tile-ordered bitplane words" (``pack_words``): within
 each 512-row tile, int32 word r, shift slot j holds tile-local row
@@ -55,6 +56,7 @@ import numpy as np
 import torch
 
 from vq_tpu_torch._device import round_bf16
+from vq_tpu_torch.kernels._build import grid_chunks, merge_groups
 from vq_tpu_torch.kernels.topk import ordered_topk
 from vq_tpu_torch.utils.trace import span
 
@@ -64,7 +66,6 @@ _KINDS = {"uniform": 0, "perdim": 1, "shared": 2, "values": 3}
 _METRICS = {"l2": 0, "ip": 1, "nip": 2}
 _FAMILIES = {"seg": 0, "rabitq": 1}
 _PLAIN_ELEMS = 1 << 26  # plain twin: cap on one (Q, rows) score block
-_WAVES = 4  # kernel blocks per resident block slot the chunking aims for
 SCAN_WIDTHS = (64, 128)  # query-tile widths of the bf16 kernel (csrc/packed_scan.cu)
 
 
@@ -142,9 +143,10 @@ class PackedCorpus:
     perm        (num_rows,) int32 scan position → corpus row id when the
                 builder norm-ordered the rows; else None
     prune_hint  the tile bounds differ enough for the prune stage to fire
-    last_scan   the work of the last dense scan over this layout through
-                ``methods/saq.py::scan_topk`` ({} before one): ``scan_units``
-                and ``tiles_scanned``, as ``prune_units`` counts them
+    last_scan   the work of the last dense scan over this layout through a
+                quantizer's ``scan_topk`` (``methods/packed.py::dense_topk``;
+                {} before one): ``scan_units`` and ``tiles_scanned``, as
+                ``prune_units`` counts them
     """
 
     def __init__(self, words, factors, num_rows, tile_stats=None, has_norms=False,
@@ -393,32 +395,6 @@ def _check_inputs(q_cat, qa, words, factors, lv_tables, segs, k, metric_kind, fa
         if tuple(tile_mask.shape) != (n // TILE,) or tile_mask.is_floating_point():
             raise ValueError(f"tile_mask must be an integer or bool tensor of shape "
                              f"({n // TILE},), got {tile_mask.dtype} {tuple(tile_mask.shape)}")
-
-
-def grid_chunks(slots: int, qblocks: int, nb: int, merge_cap: int, k: int) -> int:
-    """Tile chunks per query block of a (qblocks, chunks) grid over ``slots``
-    resident blocks (SMs × blocks per SM): one when the query blocks alone
-    fill the slots; else enough blocks for _WAVES waves and at most one
-    chunk per tile; beyond one wave, rounded down to whole waves (a last,
-    partial wave leaves most SMs idle while it runs).  A merge launch sorts
-    at most ``merge_cap`` candidates a query, g = merge_cap // k chunk
-    lists.  Where g chunks a query block cannot fill the slots (few
-    queries, large k), the lists merge in groups of g first
-    (``merge_groups``): chunks is then a multiple of g, at most g²."""
-    if qblocks >= slots:
-        return 1
-    g = merge_cap // k
-    cap = g if qblocks * g >= slots else g * g
-    chunks = max(1, min(-(-_WAVES * slots // qblocks), nb, cap))
-    if qblocks * chunks > slots:
-        chunks = max(1, qblocks * chunks // slots * slots // qblocks)
-    return chunks // g * g if chunks > g else chunks
-
-
-def merge_groups(chunks: int, merge_cap: int, k: int) -> int:
-    """First-level merges a query (0: the chunk lists merge in one launch)."""
-    g = merge_cap // k
-    return chunks // g if chunks > g else 0
 
 
 def _chunks(lib, device, desc: np.ndarray, use_bf16: bool, num_q: int, nb: int, k: int,

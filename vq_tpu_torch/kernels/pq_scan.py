@@ -37,7 +37,7 @@ from typing import Optional, Tuple
 import torch
 
 from vq_tpu_torch._device import round_bf16
-from vq_tpu_torch.kernels.packed_scan import grid_chunks, merge_groups
+from vq_tpu_torch.kernels._build import grid_chunks, merge_groups
 from vq_tpu_torch.kernels.topk import ordered_topk
 from vq_tpu_torch.utils.trace import span
 

@@ -95,12 +95,12 @@ class BaseQuantizer:
         return scan_generic_topk(queries, codes, self.decode_fn(), k, metric, norms,
                                  tile_rows, use_bf16, num_valid=num_valid, approx=approx)
 
-    def prepare_scan(self, codes, norms=None, num_queries=8):
+    def prepare_scan(self, codes, norms=None):
         """Optionally build a scan-optimized corpus layout once at index fit;
         None means "scan the stored rows directly"."""
         return None
 
-    def prepare_shard_cache(self, codes, norms=None, num_queries=8, num_valid_rows=None):
+    def prepare_shard_cache(self, codes, norms=None, num_valid_rows=None):
         """A PER-SHARD packed scan layout for the sharded packed index
         (``dist/sharded_packed.py``): like ``prepare_scan``, but rows ≥
         ``num_valid_rows`` are pad rows (each shard holds an equal-size
@@ -109,7 +109,7 @@ class BaseQuantizer:
         no packed layout (the sharded packed index then raises)."""
         return None
 
-    def prepare_tile_cache(self, codes, norms=None, num_queries=8):
+    def prepare_tile_cache(self, codes, norms=None):
         """An ORDER-PRESERVING packed scan layout (``perm is None``: rows stay
         in the caller's order) for tile-masked scans: the probed-tile IVF
         index (``index/ivf_packed.py``) keeps rows sorted by coarse cluster,
@@ -119,7 +119,7 @@ class BaseQuantizer:
         return None
 
     def packed_scan_raw(self, queries, packed, k, metric, num_valid=None, use_bf16=True,
-                        tile_mask=None, mask_cap=None):
+                        tile_mask=None):
         """Maximize-form (scores, scan-position ids) of the packed kernel over
         a ``prepare_scan`` / ``prepare_tile_cache`` layout, restricted to the
         tiles of ``tile_mask`` when given; only methods with a packed layout

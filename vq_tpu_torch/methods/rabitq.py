@@ -32,17 +32,12 @@ from vq_tpu_torch.core.packing import (
     packed_bytes,
     unpack_bits,
 )
-from vq_tpu_torch.kernels.adc import _finalize, _streaming_topk
+from vq_tpu_torch.kernels.adc import _col_mask, _finalize, _nip_norms, _streaming_topk
+from vq_tpu_torch.kernels.adc import maximize_scores
 from vq_tpu_torch.kernels.lloyd1d import lloyd_1d_normal, quantize_to_levels
-from vq_tpu_torch.kernels.packed_scan import (
-    TILE,
-    PackedCorpus,
-    make_segspec,
-    pack_words,
-    packed_scan_topk,
-)
-from vq_tpu_torch.methods.base import BaseQuantizer
-from vq_tpu_torch.methods.saq import _tile_min_max, prune_hint_from_stats
+from vq_tpu_torch.kernels.packed_scan import TILE, PackedCorpus, make_segspec, pack_words
+from vq_tpu_torch.methods.packed import PackedQuantizer, PackedRoute, dense_topk, search_corpus
+from vq_tpu_torch.methods.saq import _VALUES_MIN_BITS, _tile_min_max, prune_hint_from_stats
 
 _ENCODE_CHUNK = 65536
 
@@ -112,10 +107,6 @@ def decode(params: RaBitQParams, codes: torch.Tensor, num_bits: int) -> torch.Te
 # ---------------------------------------------------------------------------
 
 
-# B ≥ this width stores the f32 value plane (the JAX package's threshold)
-_VALUES_MIN_BITS = 5
-
-
 def _packed_segspec(d: int, num_bits: int):
     # scale_col 0 = the estimator scale α, folded into the dequantized values
     if num_bits >= _VALUES_MIN_BITS:
@@ -177,39 +168,16 @@ def prepare_packed(params: RaBitQParams, codes: torch.Tensor, num_bits: int,
                         prune_hint=prune_hint_from_stats(stats))
 
 
-def packed_scan_args(params: RaBitQParams, queries, packed: PackedCorpus, k, metric,
-                     num_bits, num_valid=None, use_bf16=True, prune=False) -> dict:
-    """The keyword arguments of ``packed_scan_topk`` (family "rabitq")."""
+def packed_route(params: RaBitQParams, num_bits: int) -> PackedRoute:
+    """One segment; factor row 0 the scale α, row 1 the L2 shift c2, row 2
+    the NIP norm.  q·x̂ = α·(qP)·ŝ + q·c."""
     seg = _packed_segspec(params.centroid.shape[0], num_bits)
-    qr = queries @ params.rotation
-    qc = queries @ params.centroid
-    if metric == Metric.L2:
-        kind, qa = "l2", 2.0 * qc - torch.sum(params.centroid ** 2)
-    else:
-        kind, qa = ("ip" if metric == Metric.IP else "nip"), qc
-    limit = packed.num_rows if num_valid is None else min(packed.num_rows, int(num_valid))
-    qprune = None
-    if prune:
-        if packed.tile_stats is None:
-            raise ValueError("prune needs a corpus with tile stats")
-        cr = params.centroid @ params.rotation
-        b = torch.linalg.norm(qr - cr[None, :] if metric == Metric.L2 else qr, dim=1)
-        qprune = torch.stack([qa, b], dim=1).contiguous()
-    return dict(
-        q_cat=qr.contiguous(), qa=qa.contiguous(), words=packed.words, factors=packed.factors,
-        lv_tables=() if seg.dequant == "values" else (params.levels.reshape(1, -1),),
-        segs=(seg,), k=k, family="rabitq", metric_kind=kind, norm_col=2, r2_cols=(1,),
-        limit=limit, use_bf16=use_bf16, prune=prune,
-        tile_stats=packed.tile_stats if prune else None, qprune=qprune)
-
-
-def _packed_scan(params: RaBitQParams, queries, packed: PackedCorpus, k, metric, num_bits,
-                 num_valid=None, use_bf16=True, prune=False, tile_mask=None, mask_cap=None):
-    """The packed kernel → maximize-form (scores, ids) [+ scanned count when
-    prune]."""
-    return packed_scan_topk(**packed_scan_args(params, queries, packed, k, metric, num_bits,
-                                               num_valid, use_bf16, prune),
-                            tile_mask=tile_mask, mask_cap=mask_cap)
+    lv = None if seg.dequant == "values" else params.levels.reshape(1, -1)
+    return PackedRoute((seg,), (lv,), "rabitq", (1,), 2,
+                       lambda queries, seg_ids: (queries @ params.rotation,
+                                                 queries @ params.centroid),
+                       lambda: torch.sum(params.centroid ** 2),
+                       lambda seg_ids: params.centroid @ params.rotation)
 
 
 def scan_topk(params: RaBitQParams, queries, codes: torch.Tensor, k: int, metric: Metric,
@@ -218,8 +186,8 @@ def scan_topk(params: RaBitQParams, queries, codes: torch.Tensor, k: int, metric
               packed_cache: Optional[PackedCorpus] = None,
               use_packed: Optional[bool] = None, prune_tiles: Optional[bool] = None):
     """RaBitQ search → (Q, k) scores in the metric's form, (Q, k) ids: the
-    packed kernel for n ≥ 512 and k ≤ 128 (prune on when the cache's hint
-    says it can fire), else the plain streaming scan."""
+    dense packed route of ``methods/packed.py`` for n ≥ 512 and k ≤ 128,
+    else the plain streaming scan."""
     dev = codes.device
     d = params.centroid.shape[0]
     n = codes.shape[0]
@@ -227,21 +195,12 @@ def scan_topk(params: RaBitQParams, queries, codes: torch.Tensor, k: int, metric
     use_bf16 = use_bf16 and bf16_supported(dev)
     queries = as_f32(queries, dev)
     q_sq = torch.sum(queries * queries, dim=-1)
-    if use_packed is None:
-        use_packed = n >= TILE and k <= 128
-    if use_packed:
-        if metric == Metric.NIP:
-            if packed_cache is not None and not packed_cache.has_norms:
-                raise ValueError("Metric.NIP needs a packed cache built with norms")
-            if packed_cache is None and norms is None:
-                raise ValueError("Metric.NIP requires original row norms")
-        packed = packed_cache if packed_cache is not None else prepare_packed(
-            params, codes, num_bits, norms=norms if metric == Metric.NIP else None)
-        prune = (prune_tiles if prune_tiles is not None
-                 else packed.tile_stats is not None and packed.prune_hint)
-        out = _packed_scan(params, queries, packed, k, metric, num_bits, num_valid=num_valid,
-                           use_bf16=use_bf16, prune=prune)
-        return _finalize(out[0], out[1], metric, q_sq)
+    packed = search_corpus(packed_cache,
+                           lambda nr: prepare_packed(params, codes, num_bits, norms=nr),
+                           n, k, metric, norms, num_valid, use_packed)
+    if packed is not None:
+        return dense_topk(packed_route(params, num_bits), queries, packed, k, metric, q_sq,
+                          num_valid=num_valid, use_bf16=use_bf16, prune_tiles=prune_tiles)
 
     tile = min(tile_rows, max(8, n))
     qr = queries @ params.rotation
@@ -250,11 +209,7 @@ def scan_topk(params: RaBitQParams, queries, codes: torch.Tensor, k: int, metric
     c_sq = torch.sum(params.centroid ** 2)
     qrd = round_bf16(qr) if use_bf16 else qr
     limit = n if num_valid is None else min(n, int(num_valid))
-    norms_t = None
-    if metric == Metric.NIP:
-        if norms is None:
-            raise ValueError("Metric.NIP requires original row norms")
-        norms_t = as_f32(norms, dev)
+    norms_t = _nip_norms(norms, n, dev) if metric == Metric.NIP else None
     sqrt_d = math.sqrt(d)
 
     def score_tile(start):
@@ -262,23 +217,16 @@ def scan_topk(params: RaBitQParams, queries, codes: torch.Tensor, k: int, metric
         # unbiased estimator: α = ‖r‖·√D/(t·‖ŝ‖²) (⟨s,ŝ⟩ = t·‖ŝ‖²)
         alpha = nrm * sqrt_d / torch.clamp(t * torch.sum(s_hat * s_hat, dim=-1), min=1e-12)
         sdot = qrd @ (round_bf16(s_hat) if use_bf16 else s_hat).T
-        ip = alpha[None, :] * sdot + qc[:, None]
-        if metric == Metric.L2:
-            xhat_sq = nrm * nrm + 2.0 * alpha * (s_hat @ cr) + c_sq
-            s = 2.0 * ip - xhat_sq[None, :]
-        elif metric == Metric.IP:
-            s = ip
-        else:
-            nt = norms_t[start: start + s_hat.shape[0]]
-            s = ip / torch.clamp(nt, min=1e-30)[None, :]
-        col = start + torch.arange(s_hat.shape[0], device=dev)
-        return torch.where(col[None, :] < limit, s, torch.full_like(s, -np.inf))
+        s = maximize_scores(alpha[None, :] * sdot + qc[:, None],
+                            lambda: nrm * nrm + 2.0 * alpha * (s_hat @ cr) + c_sq, metric,
+                            lambda: norms_t[start: start + s_hat.shape[0]])
+        return _col_mask(s, start, limit)
 
     scores, idx = _streaming_topk(score_tile, n, num_q, k, tile, approx=approx)
     return _finalize(scores, idx, metric, q_sq)
 
 
-class RaBitQ(BaseQuantizer):
+class RaBitQ(PackedQuantizer):
     name = "rabitq"
 
     def __init__(self, cfg: RaBitQConfig = RaBitQConfig(), device=None):
@@ -316,27 +264,13 @@ class RaBitQ(BaseQuantizer):
                          num_valid=num_valid, approx=approx, packed_cache=cache,
                          prune_tiles=prune_tiles)
 
-    def prepare_scan(self, codes, norms=None, num_queries=8):
-        """The PackedCorpus scan cache (unsorted), built once at index fit."""
+    def packed_route(self) -> PackedRoute:
+        return packed_route(self.params, self.cfg.num_bits)
+
+    def _pack(self, codes, norms=None, sort_rows=False, num_valid_rows=None):
+        """Unsorted: a shard's pad rows stay at the tail for the ``num_valid``
+        prefix limit."""
         return prepare_packed(self.params, codes, self.cfg.num_bits, norms=norms)
-
-    def prepare_shard_cache(self, codes, norms=None, num_queries=8, num_valid_rows=None):
-        """The per-shard cache (base contract): unsorted, so the pad rows stay
-        at the tail for the ``num_valid`` prefix limit."""
-        return self.prepare_scan(codes, norms=norms, num_queries=num_queries)
-
-    def prepare_tile_cache(self, codes, norms=None, num_queries=8):
-        """The order-preserving layout (base contract): the scan layout is
-        already unsorted."""
-        return self.prepare_scan(codes, norms=norms, num_queries=num_queries)
-
-    def packed_scan_raw(self, queries, packed, k, metric, num_valid=None, use_bf16=True,
-                        tile_mask=None, mask_cap=None):
-        prune = packed.tile_stats is not None and packed.prune_hint
-        out = _packed_scan(self.params, as_f32(queries, self.device), packed, k, metric,
-                           self.cfg.num_bits, num_valid=num_valid, use_bf16=use_bf16,
-                           prune=prune, tile_mask=tile_mask, mask_cap=mask_cap)
-        return out[0], out[1]
 
     def residual_scorer(self):
         """Code-space window scorer (base contract): with ô = ŝ·(‖r‖·t/√D),

@@ -39,23 +39,14 @@ from vq_tpu_torch.core.ffd import (
     ffd_layout,
 )
 from vq_tpu_torch.data.sampling import host_sample_rows
-from vq_tpu_torch.kernels.adc import _finalize, _streaming_topk
+from vq_tpu_torch.kernels.adc import _col_mask, _finalize, _nip_norms, _streaming_topk
+from vq_tpu_torch.kernels.adc import maximize_scores
 from vq_tpu_torch.kernels.lloyd1d import lloyd_1d, lloyd_1d_columns, quantize_to_levels
 from vq_tpu_torch.kernels.lloyd1d import quantize_to_levels_per_dim
-from vq_tpu_torch.kernels.packed_scan import (
-    TILE,
-    PackedCorpus,
-    make_segspec,
-    pack_words,
-    packed_scan_topk,
-)
-from vq_tpu_torch.methods.base import BaseQuantizer
-from vq_tpu_torch.methods.saq import (
-    _VALUES_MIN_BITS,
-    _codebook_exact,
-    _tile_stats,
-    prune_hint_from_stats,
-)
+from vq_tpu_torch.kernels.packed_scan import TILE, PackedCorpus, make_segspec, pack_words
+from vq_tpu_torch.methods.packed import PackedQuantizer, PackedRoute, dense_topk, search_corpus
+from vq_tpu_torch.methods.saq import (_VALUES_MIN_BITS, _codebook_exact, _tile_stats,
+                                     prune_hint_from_stats)
 
 _ENCODE_CHUNK = 16384  # rows per encode step (the dense bit stream is (rows, Σb))
 
@@ -205,13 +196,14 @@ def _bit_runs(bits: np.ndarray):
 
 
 def packed_segspecs(params: RankAwareParams, bits: np.ndarray):
-    """→ (segspecs, level tables of the "perdim" segments in segment order,
-    dim slices): one segment per equal-bit run, no per-row scale; runs at
-    B ≥ 5 store the f32 value plane."""
+    """→ (segspecs, per-segment level tables, None for a value plane, dim
+    slices): one segment per equal-bit run, no per-row scale; runs at B ≥ 5
+    store the f32 value plane."""
     segs, lv_tables, dim_slices = [], [], []
     for st, ln, b in _bit_runs(np.asarray(bits)):
         if b >= _VALUES_MIN_BITS:
             segs.append(make_segspec(b, ln, "values", -1))
+            lv_tables.append(None)
         else:
             segs.append(make_segspec(b, ln, "perdim", -1))
             lv_tables.append(params.codebooks[st:st + ln, : 1 << b].contiguous())
@@ -265,43 +257,22 @@ def prepare_packed(params, bits, layout, codes: torch.Tensor, packing: str,
                         has_norms=norms is not None, prune_hint=prune_hint_from_stats(stats))
 
 
-def packed_scan_args(params, bits, queries, packed: PackedCorpus, k, metric, num_valid=None,
-                     use_bf16=True, prune=False) -> dict:
-    """The keyword arguments of ``packed_scan_topk`` (or its plain twin)."""
+def packed_route(params: RankAwareParams, bits: np.ndarray) -> PackedRoute:
+    """The runs' segments; factor row s segment s's L2 shift, row S the NIP
+    norm.  q·x̂ = (qV)·ŷ + q·μ over the allocated dims."""
     segs, lv_tables, dim_slices = packed_segspecs(params, bits)
-    qv = queries @ params.rotation
-    mu_v = params.mean @ params.rotation
-    q_mu = queries @ params.mean
-    q_cat = torch.cat([qv[:, st:st + ln] for st, ln in dim_slices], dim=1)
-    if metric == Metric.L2:
-        kind, qa = "l2", 2.0 * q_mu - torch.sum(params.mean ** 2)
-    else:
-        kind, qa = ("ip" if metric == Metric.IP else "nip"), q_mu
-    limit = packed.num_rows if num_valid is None else min(packed.num_rows, int(num_valid))
-    qprune = None
-    if prune:
-        if packed.tile_stats is None:
-            raise ValueError("prune needs a corpus with tile stats")
-        mean_cat = torch.cat([mu_v[st:st + ln] for st, ln in dim_slices])
-        b = torch.linalg.norm(q_cat - mean_cat[None, :] if metric == Metric.L2 else q_cat,
-                              dim=1)
-        qprune = torch.stack([qa, b], dim=1).contiguous()
-    s_cnt = len(segs)
-    return dict(
-        q_cat=q_cat.contiguous(), qa=qa.contiguous(), words=packed.words,
-        factors=packed.factors, lv_tables=lv_tables, segs=segs, k=k, family="seg",
-        metric_kind=kind, norm_col=s_cnt, r2_cols=tuple(range(s_cnt)), limit=limit,
-        use_bf16=use_bf16, prune=prune, tile_stats=packed.tile_stats if prune else None,
-        qprune=qprune)
 
+    def query(queries, seg_ids):
+        qv = queries @ params.rotation
+        return (torch.cat([qv[:, st:st + ln] for st, ln in dim_slices], dim=1),
+                queries @ params.mean)
 
-def _packed_scan(params, bits, queries, packed, k, metric, num_valid=None, use_bf16=True,
-                 prune=False, tile_mask=None, mask_cap=None):
-    """The packed kernel → maximize-form (scores, ids) [+ scanned count when
-    prune]."""
-    return packed_scan_topk(**packed_scan_args(params, bits, queries, packed, k, metric,
-                                               num_valid, use_bf16, prune),
-                            tile_mask=tile_mask, mask_cap=mask_cap)
+    def centre(seg_ids):
+        mu_v = params.mean @ params.rotation
+        return torch.cat([mu_v[st:st + ln] for st, ln in dim_slices])
+
+    return PackedRoute(segs, lv_tables, "seg", tuple(range(len(segs))), len(segs), query,
+                       lambda: torch.sum(params.mean ** 2), centre)
 
 
 def scan_topk(params, bits, layout, packing: str, queries, codes: torch.Tensor, k: int,
@@ -310,29 +281,23 @@ def scan_topk(params, bits, layout, packing: str, queries, codes: torch.Tensor, 
               packed_cache: Optional[PackedCorpus] = None,
               use_packed: Optional[bool] = None, prune_tiles: Optional[bool] = None):
     """RankAware search → (Q, k) scores in the metric's form, (Q, k) ids: the
-    packed kernel for n ≥ 512 and k ≤ 128 (the JAX package's rule; prune on
-    when the cache's hint says it can fire), else the plain streaming scan."""
+    dense packed route of ``methods/packed.py`` for n ≥ 512 and k ≤ 128
+    where some dim has bits (the JAX package's rule), else the plain
+    streaming scan."""
     dev = codes.device
     n = codes.shape[0]
     num_q = queries.shape[0]
     use_bf16 = use_bf16 and bf16_supported(dev)
     queries = as_f32(queries, dev)
     q_sq = torch.sum(queries * queries, dim=-1)
-    if use_packed is None:
-        use_packed = n >= TILE and k <= 128 and bool(_bit_runs(np.asarray(bits)))
-    if use_packed:
-        if metric == Metric.NIP:
-            if packed_cache is not None and not packed_cache.has_norms:
-                raise ValueError("Metric.NIP needs a packed cache built with norms")
-            if packed_cache is None and norms is None:
-                raise ValueError("Metric.NIP requires original row norms")
-        packed = packed_cache if packed_cache is not None else prepare_packed(
-            params, bits, layout, codes, packing, norms if metric == Metric.NIP else None)
-        prune = (prune_tiles if prune_tiles is not None
-                 else packed.tile_stats is not None and packed.prune_hint)
-        out = _packed_scan(params, bits, queries, packed, k, metric, num_valid=num_valid,
-                           use_bf16=use_bf16, prune=prune)
-        return _finalize(out[0], out[1], metric, q_sq)
+    if use_packed is None and not _bit_runs(np.asarray(bits)):
+        use_packed = False
+    packed = search_corpus(
+        packed_cache, lambda nr: prepare_packed(params, bits, layout, codes, packing, nr),
+        n, k, metric, norms, num_valid, use_packed)
+    if packed is not None:
+        return dense_topk(packed_route(params, bits), queries, packed, k, metric, q_sq,
+                          num_valid=num_valid, use_bf16=use_bf16, prune_tiles=prune_tiles)
 
     tile = min(tile_rows, max(8, n))
     qv = queries @ params.rotation
@@ -341,31 +306,21 @@ def scan_topk(params, bits, layout, packing: str, queries, codes: torch.Tensor, 
     mu_v = params.mean @ params.rotation
     mu_sq = torch.sum(params.mean ** 2)
     limit = n if num_valid is None else min(n, int(num_valid))
-    norms_t = None
-    if metric == Metric.NIP:
-        if norms is None:
-            raise ValueError("Metric.NIP requires original row norms")
-        norms_t = as_f32(norms, dev)
+    norms_t = _nip_norms(norms, n, dev) if metric == Metric.NIP else None
 
     def score_tile(start):
         y_hat = _dequantize_y(params, _unpack(bits, layout, codes[start:start + tile], packing))
-        ip = qv @ (round_bf16(y_hat) if use_bf16 else y_hat).T + q_mu[:, None]
-        if metric == Metric.L2:
-            xsq = torch.sum(y_hat * y_hat, dim=1) + 2.0 * (y_hat @ mu_v) + mu_sq
-            s = 2.0 * ip - xsq[None, :]
-        elif metric == Metric.IP:
-            s = ip
-        else:
-            nt = norms_t[start:start + y_hat.shape[0]]
-            s = ip / torch.clamp(nt, min=1e-30)[None, :]
-        col = start + torch.arange(y_hat.shape[0], device=dev)
-        return torch.where(col[None, :] < limit, s, torch.full_like(s, -np.inf))
+        s = maximize_scores(
+            qv @ (round_bf16(y_hat) if use_bf16 else y_hat).T + q_mu[:, None],
+            lambda: torch.sum(y_hat * y_hat, dim=1) + 2.0 * (y_hat @ mu_v) + mu_sq, metric,
+            lambda: norms_t[start:start + y_hat.shape[0]])
+        return _col_mask(s, start, limit)
 
     scores, idx = _streaming_topk(score_tile, n, num_q, k, tile, approx=approx)
     return _finalize(scores, idx, metric, q_sq)
 
 
-class RankAware(BaseQuantizer):
+class RankAware(PackedQuantizer):
     name = "rankaware"
 
     def __init__(self, cfg: RankAwareConfig = RankAwareConfig(), device=None):
@@ -394,32 +349,16 @@ class RankAware(BaseQuantizer):
         params, bits, layout, packing = self.params, self.bits, self.layout, self.cfg.packing
         return lambda ct: decode(params, bits, layout, ct, packing)
 
-    def prepare_scan(self, codes, norms=None, num_queries=8):
-        """The order-preserving PackedCorpus scan cache, built once at index
-        fit.  ``num_queries`` sized the TPU's VMEM gate; the card's kernel
-        takes any batch."""
+    def packed_route(self) -> PackedRoute:
+        return packed_route(self.params, self.bits)
+
+    def _pack(self, codes, norms=None, sort_rows=False, num_valid_rows=None):
+        """Order-preserving, so a shard's pad rows stay at the tail for the
+        ``num_valid`` prefix limit; None where no dim has bits."""
         if not _bit_runs(np.asarray(self.bits)):
             return None
         return prepare_packed(self.params, self.bits, self.layout, codes, self.cfg.packing,
                               norms=norms)
-
-    def prepare_shard_cache(self, codes, norms=None, num_queries=8, num_valid_rows=None):
-        """The per-shard cache (base contract): unsorted, so the pad rows stay
-        at the tail for the ``num_valid`` prefix limit."""
-        return self.prepare_scan(codes, norms=norms, num_queries=num_queries)
-
-    def prepare_tile_cache(self, codes, norms=None, num_queries=8):
-        """The order-preserving layout (base contract): the scan cache is
-        already unsorted."""
-        return self.prepare_scan(codes, norms=norms, num_queries=num_queries)
-
-    def packed_scan_raw(self, queries, packed, k, metric, num_valid=None, use_bf16=True,
-                        tile_mask=None, mask_cap=None):
-        prune = packed.tile_stats is not None and packed.prune_hint
-        out = _packed_scan(self.params, self.bits, as_f32(queries, self.device), packed, k,
-                           metric, num_valid=num_valid, use_bf16=use_bf16, prune=prune,
-                           tile_mask=tile_mask, mask_cap=mask_cap)
-        return out[0], out[1]
 
     def residual_scorer(self):
         """Code-space window scorer (base contract): decode(ct) = ŷ·Vᵀ + μ,

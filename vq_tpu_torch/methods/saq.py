@@ -10,9 +10,10 @@
           [seg codes...][rescale f32 × S][o_l2norm f32 × S], byte-identical
           to the JAX package's.
   search: queries are PCA-projected and segment-rotated once; the packed
-          route (``prepare_packed`` → ``kernels/packed_scan.py``) scans
-          tile-ordered words with the hand-written CUDA kernel on a card;
-          ``use_packed=False`` or k > 128 takes the plain streaming scan.
+          route (``methods/packed.py`` over ``prepare_packed``'s layout and
+          ``kernels/packed_scan.py``) scans tile-ordered words with the
+          hand-written CUDA kernel on a card; ``use_packed=False`` or
+          k > 128 takes the plain streaming scan.
           ``prune_segments`` > 0 runs the head-segment cascade
           (``scan_topk``, ``_saq_rerank``; off by default, as in the JAX
           package, where it lost every TPU measurement).
@@ -21,6 +22,7 @@
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 from typing import Iterable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -37,7 +39,8 @@ from vq_tpu_torch.core.packing import (
     unpack_bits,
 )
 from vq_tpu_torch.data.sampling import host_sample_rows
-from vq_tpu_torch.kernels.adc import _finalize, _streaming_topk
+from vq_tpu_torch.kernels.adc import _col_mask, _finalize, _nip_norms, _streaming_topk
+from vq_tpu_torch.kernels.adc import maximize_scores
 from vq_tpu_torch.kernels.caq import (
     _CONST_EPSILON,
     caq_decode,
@@ -46,16 +49,10 @@ from vq_tpu_torch.kernels.caq import (
     caq_encode_levels,
 )
 from vq_tpu_torch.kernels.lloyd1d import lloyd_1d_columns, lloyd_1d_sorted
-from vq_tpu_torch.kernels.packed_scan import (
-    TILE,
-    PackedCorpus,
-    make_segspec,
-    pack_words,
-    packed_scan_topk,
-    prune_units,
-)
+from vq_tpu_torch.kernels.packed_scan import MAX_K, TILE, PackedCorpus, make_segspec, pack_words
 from vq_tpu_torch.kernels.topk import ordered_topk
-from vq_tpu_torch.methods.base import BaseQuantizer
+from vq_tpu_torch.methods.packed import PackedQuantizer, PackedRoute, dense_topk, packed_scan
+from vq_tpu_torch.methods.packed import search_corpus
 
 _ENCODE_CHUNK = 65536  # rows per encode step (bounds the CAQ temporaries)
 
@@ -574,55 +571,26 @@ def fill_packed(plan: SAQPlan, params: SAQParams, n: int,
 
 
 def _packed_query_side(plan: SAQPlan, params: SAQParams, queries: torch.Tensor, seg_ids):
-    """Queries and mean in the kernel's concatenated code space →
-    (q_cat (Q, Σln), mean_cat (Σln,), q_mean (Q,), mean_sq)."""
+    """Queries in the kernel's concatenated code space over the segments
+    ``seg_ids`` → (q_cat (Q, Σ ln), q·pca_mean (Q,))."""
     qp = queries @ params.pca_rot
-    mean_segs = _mean_segs(plan, params)
     q_cat = torch.cat([qp[:, plan.seg_starts[s]: plan.seg_starts[s] + plan.seg_lens[s]]
                        @ params.seg_rots[s] for s in seg_ids], dim=1)
-    mean_cat = torch.cat([mean_segs[s] for s in seg_ids])
-    return q_cat, mean_cat, queries @ params.pca_mean, torch.sum(params.pca_mean ** 2)
+    return q_cat, queries @ params.pca_mean
 
 
-def packed_scan_args(plan, params, queries, packed: PackedCorpus, k, metric, seg_ids=None,
-                     num_valid=None, use_bf16=True, prune=False) -> dict:
-    """The keyword arguments of ``packed_scan_topk`` (or its plain twin) for
-    a search of (a segment subset of) the corpus."""
+def _mean_cat(plan: SAQPlan, params: SAQParams, seg_ids) -> torch.Tensor:
+    mean_segs = _mean_segs(plan, params)
+    return torch.cat([mean_segs[s] for s in seg_ids])
+
+
+def packed_route(plan: SAQPlan, params: SAQParams) -> PackedRoute:
+    """Segment s's L2 shift is factor row S+s, the NIP norm row 2S."""
     segs, lv_list = packed_segspecs(plan, params)
-    if seg_ids is None:
-        seg_ids = tuple(range(plan.num_segments))
-    q_cat, mean_cat, q_mean, mean_sq = _packed_query_side(plan, params, queries, seg_ids)
-    if metric == Metric.L2:
-        kind, qa = "l2", 2.0 * q_mean - mean_sq
-    else:
-        kind, qa = ("ip" if metric == Metric.IP else "nip"), q_mean
-    limit = packed.num_rows if num_valid is None else min(packed.num_rows, int(num_valid))
-    qprune = None
-    if prune:
-        # the tile stats bound the FULL reconstruction: no segment subsets
-        if len(seg_ids) != plan.num_segments or packed.tile_stats is None:
-            raise ValueError("prune needs every segment and a corpus with tile stats")
-        b = torch.linalg.norm(q_cat - mean_cat[None, :] if metric == Metric.L2 else q_cat,
-                              dim=1)
-        qprune = torch.stack([qa, b], dim=1).contiguous()
     s_cnt = plan.num_segments
-    return dict(
-        q_cat=q_cat.contiguous(), qa=qa.contiguous(),
-        words=tuple(packed.words[s] for s in seg_ids), factors=packed.factors,
-        lv_tables=tuple(lv_list[s] for s in seg_ids if lv_list[s] is not None),
-        segs=tuple(segs[s] for s in seg_ids), k=k, family="seg", metric_kind=kind,
-        norm_col=2 * s_cnt, r2_cols=tuple(s_cnt + s for s in seg_ids), limit=limit,
-        use_bf16=use_bf16, prune=prune, tile_stats=packed.tile_stats if prune else None,
-        qprune=qprune)
-
-
-def _packed_scan(plan, params, queries, packed: PackedCorpus, k, metric, seg_ids=None,
-                 num_valid=None, use_bf16=True, prune=False, tile_mask=None, mask_cap=None):
-    """The packed kernel over (a segment subset of) the corpus → maximize-form
-    (scores, scan-position ids) [+ scanned count when prune]."""
-    return packed_scan_topk(**packed_scan_args(plan, params, queries, packed, k, metric,
-                                               seg_ids, num_valid, use_bf16, prune),
-                            tile_mask=tile_mask, mask_cap=mask_cap)
+    return PackedRoute(segs, lv_list, "seg", tuple(range(s_cnt, 2 * s_cnt)), 2 * s_cnt,
+                       partial(_packed_query_side, plan, params),
+                       lambda: torch.sum(params.pca_mean ** 2), partial(_mean_cat, plan, params))
 
 
 def _dequant_cat(plan: SAQPlan, params: SAQParams, rows: torch.Tensor, seg_ids) -> torch.Tensor:
@@ -641,17 +609,10 @@ def scan_topk(plan: SAQPlan, params: SAQParams, queries, codes: torch.Tensor, k:
               use_packed: Optional[bool] = None, prune_tiles: Optional[bool] = None):
     """SAQ search → (Q, k) scores in the metric's form, (Q, k) ids.
 
-    Packed route (n ≥ 512 and k ≤ 128 unless ``use_packed`` says): the
-    packed kernel over ``packed_cache`` (or a layout built here), with the
-    variance prune on when the cache's ``prune_hint`` says it can fire
-    (``prune_tiles`` overrides); ids of a norm-ordered cache are mapped
-    back through ``perm``.  Otherwise the plain streaming scan.
-
-    ``packed_cache.last_scan`` records the work of the call's dense packed
-    scan, without a device sync ({} where none ran): ``scan_units``, what a
-    scan without the prune covers (``prune_units``: (query block, tile)
-    pairs on the card, tiles in the plain twin), and ``tiles_scanned``, the
-    part of it scanned (a device scalar where the prune ran).
+    The dense packed route of ``methods/packed.py`` (n ≥ 512 and k ≤ 128
+    unless ``use_packed`` says: ``search_corpus``, ``dense_topk``) over
+    ``packed_cache`` or a layout built here; otherwise the plain streaming
+    scan.
 
     ``prune_segments`` = p > 0 (with p < the segment count and n > 2·
     ``rerank_factor``·k) is the head-segment cascade: stage 1 scores every
@@ -670,73 +631,40 @@ def scan_topk(plan: SAQPlan, params: SAQParams, queries, codes: torch.Tensor, k:
     cascade = 0 < prune_segments < plan.num_segments and n > 2 * rerank_factor * k
     k1 = min(n, rerank_factor * k)
     head = tuple(range(prune_segments))
-    if use_packed is None:
-        use_packed = n >= TILE and k <= 128
-    if packed_cache is not None:
-        packed_cache.last_scan = {}
-    if use_packed:
-        if metric == Metric.NIP:
-            # a cache built without real norms would return un-normalized scores
-            if packed_cache is not None and not packed_cache.has_norms:
-                raise ValueError("Metric.NIP needs a packed cache built with norms")
-            if packed_cache is None and norms is None:
-                raise ValueError("Metric.NIP requires original row norms")
-        packed = packed_cache if packed_cache is not None else prepare_packed(
-            plan, params, codes, norms if metric == Metric.NIP else None)
-        if packed.perm is not None and num_valid is not None:
-            raise ValueError("num_valid prefix masking is incompatible with a norm-ordered "
-                             "(sort_rows) packed cache")
-        if cascade and rerank_factor * k <= 128:
+    packed = search_corpus(packed_cache, partial(prepare_packed, plan, params, codes), n, k,
+                           metric, norms, num_valid, use_packed)
+    if packed is not None:
+        route = packed_route(plan, params)
+        if cascade and rerank_factor * k <= MAX_K:
             # stage 1 in the kernel over the head segments, prune off: the
             # tile stats bound the full reconstruction, not a subset's
-            s1, cand = _packed_scan(plan, params, queries, packed, k1, metric, seg_ids=head,
-                                    num_valid=num_valid, use_bf16=use_bf16)
+            s1, cand = packed_scan(route, queries, packed, k1, metric, seg_ids=head,
+                                   num_valid=num_valid, use_bf16=use_bf16)
             if packed.perm is not None:
                 cand = packed.perm[cand.long()]
             return _saq_rerank(plan, params, queries, codes, cand, torch.isfinite(s1), k,
                                metric, norms=norms, q_sq=q_sq)
-        prune = (prune_tiles if prune_tiles is not None
-                 else packed.tile_stats is not None and packed.prune_hint)
-        out = _packed_scan(plan, params, queries, packed, k, metric, num_valid=num_valid,
-                           use_bf16=use_bf16, prune=prune)
-        outs, outi = out[0], out[1]
-        if packed is packed_cache:
-            units = prune_units(num_q, packed.factors.shape[1], dev, use_bf16=use_bf16)
-            packed.last_scan = {"scan_units": units,
-                                "tiles_scanned": out[2] if prune else units}
-        if packed.perm is not None:
-            outi = packed.perm[outi.long()]
-        return _finalize(outs, outi, metric, q_sq)
+        return dense_topk(route, queries, packed, k, metric, q_sq, num_valid=num_valid,
+                          use_bf16=use_bf16, prune_tiles=prune_tiles)
 
     tile = min(tile_rows, max(8, n))
     limit = n if num_valid is None else min(n, int(num_valid))
-    norms_t = None
-    if metric == Metric.NIP:
-        if norms is None:
-            raise ValueError("Metric.NIP requires original row norms")
-        norms_t = as_f32(norms, dev)
+    norms_t = _nip_norms(norms, n, dev) if metric == Metric.NIP else None
 
     def make_score_tile(seg_ids):
-        q_cat, mean_cat, q_mean, mean_sq = _packed_query_side(plan, params, queries, seg_ids)
-        if use_bf16:
-            q_cat = round_bf16(q_cat)
+        q_cat, q_mean = _packed_query_side(plan, params, queries, seg_ids)
+        q_cat = round_bf16(q_cat) if use_bf16 else q_cat
+        mean_cat, mean_sq = _mean_cat(plan, params, seg_ids), torch.sum(params.pca_mean ** 2)
 
         def score_tile(start):
             ct = codes[start: start + tile]
             o_cat = _dequant_cat(plan, params, ct, seg_ids)
             ip = q_cat @ (round_bf16(o_cat) if use_bf16 else o_cat).T + q_mean[:, None]
-            if metric == Metric.L2:
-                # ‖x̂‖² = ‖mean‖² + 2·mean·r̂ + ‖r̂‖² (rotations orthogonal)
-                md = o_cat @ mean_cat
-                s_val = 2.0 * ip - (mean_sq + 2.0 * md[None, :]
-                                    + torch.sum(o_cat * o_cat, dim=1)[None, :])
-            elif metric == Metric.IP:
-                s_val = ip
-            else:
-                nt = norms_t[start: start + ct.shape[0]]
-                s_val = ip / torch.clamp(nt, min=1e-30)[None, :]
-            col = start + torch.arange(ct.shape[0], device=dev)
-            return torch.where(col[None, :] < limit, s_val, torch.full_like(s_val, -np.inf))
+            # ‖x̂‖² = ‖mean‖² + 2·mean·r̂ + ‖r̂‖² (rotations orthogonal)
+            s_val = maximize_scores(
+                ip, lambda: mean_sq + 2.0 * (o_cat @ mean_cat) + torch.sum(o_cat * o_cat, dim=1),
+                metric, lambda: norms_t[start: start + ct.shape[0]])
+            return _col_mask(s_val, start, limit)
 
         return score_tile
 
@@ -759,26 +687,23 @@ def _saq_rerank(plan: SAQPlan, params: SAQParams, queries: torch.Tensor, codes: 
     candidate position, as the JAX package's ``lax.top_k`` over the
     candidates does."""
     num_q, k1 = cand.shape
-    q_cat, mean_cat, q_mean, mean_sq = _packed_query_side(
-        plan, params, queries, tuple(range(plan.num_segments)))
+    seg_ids = tuple(range(plan.num_segments))
+    q_cat, q_mean = _packed_query_side(plan, params, queries, seg_ids)
     o_cat = _dequant_cat(plan, params, codes[cand.reshape(-1).long()],
-                         range(plan.num_segments)).reshape(num_q, k1, -1)
+                         seg_ids).reshape(num_q, k1, -1)
     ip = torch.einsum("ql,qkl->qk", q_cat, o_cat) + q_mean[:, None]
-    if metric == Metric.L2:
-        s_val = 2.0 * ip - (mean_sq + 2.0 * (o_cat @ mean_cat) + torch.sum(o_cat * o_cat, dim=-1))
-    elif metric == Metric.IP:
-        s_val = ip
-    else:
-        if norms is None:
-            raise ValueError("Metric.NIP requires original row norms")
-        s_val = ip / torch.clamp(as_f32(norms, codes.device)[cand.long()], min=1e-30)
+    mean_cat, mean_sq = _mean_cat(plan, params, seg_ids), torch.sum(params.pca_mean ** 2)
+    s_val = maximize_scores(
+        ip, lambda: mean_sq + 2.0 * (o_cat @ mean_cat) + torch.sum(o_cat * o_cat, dim=-1),
+        metric, lambda: _nip_norms(norms, codes.shape[0], codes.device)[cand.long()])
     s_val = torch.where(alive, s_val, torch.full_like(s_val, -np.inf))
     ts, ti = ordered_topk(s_val, min(k, k1))  # ids = candidate positions
     return _finalize(ts, torch.gather(cand, 1, ti.long()), metric, q_sq)
 
 
-class SAQ(BaseQuantizer):
+class SAQ(PackedQuantizer):
     name = "saq"
+    norm_order = True
 
     def __init__(self, cfg: SAQConfig = SAQConfig(), device=None):
         super().__init__(device)
@@ -815,31 +740,12 @@ class SAQ(BaseQuantizer):
                          rerank_factor=rerank_factor, packed_cache=cache,
                          prune_tiles=prune_tiles)
 
-    def prepare_scan(self, codes, norms=None, num_queries=8):
-        """The norm-ordered PackedCorpus scan cache (built once at index
-        fit), so the variance prune can fire.  ``num_queries`` sized the
-        TPU's VMEM gate; the card's kernel takes any batch."""
-        return prepare_packed(self.plan, self.params, codes, norms=norms, sort_rows=True)
+    def packed_route(self) -> PackedRoute:
+        return packed_route(self.plan, self.params)
 
-    def prepare_shard_cache(self, codes, norms=None, num_queries=8, num_valid_rows=None):
-        """The per-shard cache (base contract): norm-ordered within the shard,
-        so the variance prune composes with sharding, with the pad rows
-        sorted to the tail so the ``num_valid`` prefix limit stays exact."""
-        return prepare_packed(self.plan, self.params, codes, norms=norms, sort_rows=True,
+    def _pack(self, codes, norms=None, sort_rows=False, num_valid_rows=None):
+        return prepare_packed(self.plan, self.params, codes, norms=norms, sort_rows=sort_rows,
                               num_valid_rows=num_valid_rows)
-
-    def prepare_tile_cache(self, codes, norms=None, num_queries=8):
-        """The order-preserving layout (base contract): no norm-ordering, no
-        perm; tile stats and the prune hint as for ``prepare_scan``."""
-        return prepare_packed(self.plan, self.params, codes, norms=norms, sort_rows=False)
-
-    def packed_scan_raw(self, queries, packed, k, metric, num_valid=None, use_bf16=True,
-                        tile_mask=None, mask_cap=None):
-        prune = packed.tile_stats is not None and packed.prune_hint
-        out = _packed_scan(self.plan, self.params, as_f32(queries, self.device), packed, k,
-                           metric, num_valid=num_valid, use_bf16=use_bf16, prune=prune,
-                           tile_mask=tile_mask, mask_cap=mask_cap)
-        return out[0], out[1]
 
     def residual_scorer(self):
         """Code-space window scorer for the IVF list scans (base contract):
@@ -849,13 +755,10 @@ class SAQ(BaseQuantizer):
         that ``decode_fn`` pays a window."""
         plan, params = self.plan, self.params
         seg_ids = tuple(range(plan.num_segments))
-        mean_cat = torch.cat(_mean_segs(plan, params))
-        mean_sq = torch.sum(params.pca_mean ** 2)
+        mean_cat, mean_sq = _mean_cat(plan, params, seg_ids), torch.sum(params.pca_mean ** 2)
 
         def q_map(v):
-            q_cat, _, q_mean, _ = _packed_query_side(plan, params,
-                                                     as_f32(v, params.pca_mean.device), seg_ids)
-            return q_cat, q_mean
+            return _packed_query_side(plan, params, as_f32(v, params.pca_mean.device), seg_ids)
 
         def window(ct):
             o = _dequant_cat(plan, params, ct, seg_ids)
