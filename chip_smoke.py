@@ -43,7 +43,9 @@ Phases (any failure exits non-zero; nothing is caught):
    and 65, N < 512, k = 1 and 128 and segment lengths that are not
    multiples of 16 against the plain bf16 version, and every query-tile
    width (Q = 1, 64, 65, 1024) dense, with the prune and through tile
-   masks (every tile, 25%, one, none); kernel and plain times
+   masks (every tile, 25%, one, none), and planted ties and top-k rows in
+   one consumer warpgroup's tile rows or split across both, whose ids and
+   scores must equal the plain bf16 version's; kernel and plain times
    in bf16 (tensor cores) and f32 (FFMA), each beside its bound.
 7. The SAQ path (``bench.py:248-380`` on the port): FlatQuantizedIndex(SAQ
    bpd=2, PCA) fit, encode and norm-ordered pack, ground truth, search at
@@ -989,6 +991,69 @@ def packed_width_cases(torch, dev, n=5000, seed=13):
             f"bf16 {hits / total:.4f}, prune = dense, scanned = every pair, every tile = dense")
 
 
+def packed_split_cases(torch, dev, tiles, seed=17):
+    """The bf16 kernel's two consumer warpgroups (tile rows < 256 and ≥ 256)
+    feeding each query's one top-k list, on planted rows whose scores are
+    exact in any summation order: one 2-bit uniform segment of 64 dims,
+    queries of 1s and 2s, IP.  240 copies of 6 row templates lie all in tile
+    rows < 256 ("low"), all in rows ≥ 256 ("high"), or each template's
+    copies alternating between the two ("split": ties across the halves);
+    half of them crowd one tile, half spread over ``tiles`` tiles; every
+    other row scores below each copy.  At Q = 64 and 128 (widths 64 and
+    128), k = 10 and 100, dense and through a tile mask holding the crowded
+    tile and about half the others, ids and scores must equal the plain bf16
+    version's (ties to the lower id), and "low" and "high" find their rows
+    in their half.  Returns a line for the log."""
+    from vq_tpu_torch.kernels import packed_scan as pk
+
+    g = torch.Generator().manual_seed(seed)
+    n, ln, copies = tiles * 512, 64, 240
+    seg = pk.make_segspec(2, ln, "uniform", -1)
+    base = torch.randint(0, 2, (n, ln), generator=g)       # values -0.75, -0.25
+    templates = torch.randint(2, 4, (6, ln), generator=g)  # values 0.25, 0.75
+    crowd = int(torch.randint(0, tiles, (1,), generator=g))
+    q = (1.0 + (torch.rand((128, ln), generator=g) < 0.25).float()).to(dev)
+    qa = torch.randn((128,), generator=g).to(dev)
+    mask = torch.rand((tiles,), generator=g) < 0.5
+    mask[crowd] = True
+    mask = mask.to(torch.int32).to(dev)
+    n_cases = 0
+    for layout in ("low", "high", "split"):
+        idx, taken = base.clone(), set()
+        spots = torch.randperm(256, generator=g)
+        for c in range(copies):
+            half = {"low": 0, "high": 1}.get(layout, (c // 6) % 2)
+            r = crowd * 512 + half * 256 + int(spots[c]) if c < copies // 2 else -1
+            while r < 0 or r in taken:
+                r = (int(torch.randint(0, tiles, (1,), generator=g)) * 512 + half * 256
+                     + int(torch.randint(0, 256, (1,), generator=g)))
+            taken.add(r)
+            idx[r] = templates[c % 6]
+        words = (pk.pack_words(idx, seg.bits, seg.beff).to(dev),)
+        for nq in (64, 128):
+            for k in (10, 100):
+                a = dict(q_cat=q[:nq], qa=qa[:nq], words=words,
+                         factors=torch.zeros((1, n), device=dev), lv_tables=(), segs=(seg,),
+                         k=k, family="seg", metric_kind="ip", norm_col=-1, r2_cols=(),
+                         limit=n, use_bf16=True, prune=False, tile_stats=None, qprune=None)
+                for mode, am in (("dense", a), ("gather", {**a, "tile_mask": mask})):
+                    what = f"packed bf16 lists {layout} Q={nq} k={k} {mode}"
+                    ks, ki = pk.packed_scan_topk(**am)
+                    ps_, pi = pk.packed_scan_topk_plain(**am)
+                    require(torch.equal(ki.long().cpu(), pi.long().cpu()),
+                            f"{what}: ids differ from the plain bf16 version's")
+                    require(torch.equal(ks.cpu(), ps_.cpu()),
+                            f"{what}: scores differ from the plain bf16 version's")
+                    local = ki.long().cpu() % 512
+                    if layout != "split":
+                        require(bool(((local >= 256) == (layout == "high")).all()),
+                                f"{what}: a top-k row outside the planted half")
+                    n_cases += 1
+    return (f"bf16 top-k rows in one warpgroup's tile rows: {n_cases} cases (rows < 256, ≥ 256, "
+            f"ties split across the two; widths 64 and 128; k = 10, 100; dense and gather over "
+            f"{tiles} tiles): ids and scores = plain bf16")
+
+
 def phase_packed_edges(torch, dev, q, m, packed, codes):
     """SAQ uniform: limit < k, limit masking, N < 512, k = 1 and 128, planted
     ties; f32 ids must equal the plain version's where separated.  Then bf16
@@ -996,7 +1061,8 @@ def phase_packed_edges(torch, dev, q, m, packed, codes):
     65 (not multiples of its query tiles), k = 1 and 128, N < 512, and
     segments whose lengths are not multiples of its 16-dim k-steps --
     against the plain bf16 version: ids below the limit and a pooled recall
-    ≥ BF16_MIN_RECALL; and every query-tile width (``packed_width_cases``)."""
+    ≥ BF16_MIN_RECALL; every query-tile width (``packed_width_cases``); and
+    top-k rows in one consumer warpgroup's tile rows (``packed_split_cases``)."""
     from vq_tpu_torch import Metric
     from vq_tpu_torch.bench.tolerance import packed_tol
     from vq_tpu_torch.kernels import packed_scan as pk
@@ -1057,6 +1123,7 @@ def phase_packed_edges(torch, dev, q, m, packed, codes):
     require(hits / total >= BF16_MIN_RECALL,
             f"packed bf16 edge cases: pooled recall {hits / total} < {BF16_MIN_RECALL}")
     log("[phase 6] " + packed_width_cases(torch, dev))
+    log("[phase 6] " + packed_split_cases(torch, dev, tiles=4 * -(-n // 512)))
 
 
 def phase_packed_kernels(torch, dev, results, n=100_000, d=1024, nq=256):

@@ -19,10 +19,11 @@ its phase-7 SAQ corpus (N=1,048,576, norm-ordered and order-preserving).
 For each call it prints, for each consumer warpgroup, per pass (256 rows
 of a tile for one query tile): the waits for a stage's words (the
 producers behind), the dequantization, the wgmma issue and wait (the tensor
-cores behind), the waits at a pass's start, the cuts and their barrier (the
-other warpgroup's lag), the scores and admission, the appends and folds;
-per group (one m64 tile's k-step) the dequant and wgmma cycles; per stage
-of the producers: the waits for a free slot (the consumers behind) and the
+cores behind), the waits at a pass's start, the cuts (the once-a-tile
+update with the published k-th), the scores and admission, the appends,
+the barrier after them (the other warps' lag) and the folds; per group
+(one m64 tile's k-step) the dequant and wgmma cycles; per stage of the
+producers: the waits for a free slot (the consumers behind) and the
 copies' issue; and the call's CUDA-event time (median of 5) with the
 counters in.
 
@@ -63,10 +64,10 @@ def _flush(lo: int, hi: int, who: str) -> str:
 
 
 # consumer counters, per warpgroup: 0 pass-start waits, 1 stage waits, 2
-# dequant, 3 wgmma (per m64 tile's group), 4 the cuts and their barrier
-# (the other warps' lag), 5 scores and admission, 6 appends, folds and
-# their barriers, 7 passes, 8 groups, 9 passes that ran a fold, 10 whole
-# passes; producers: 32 slot waits, 33 copy issue, 34 stages, 35 factor
+# dequant, 3 wgmma (per m64 tile's group), 4 the cuts, 5 scores and
+# admission, 6 appends, 7 passes, 8 groups, 9 passes in which some thread
+# appended, 10 whole passes, 11 the barrier after the appends and the
+# folds; producers: 32 slot waits, 33 copy issue, 34 stages, 35 factor
 # waits.  Each block sums them in shared memory, one thread a counter
 # range, and adds them to the totals as it ends.
 _EDITS = [
@@ -99,17 +100,18 @@ _EDITS = [
     ("    if (pass == 0 && p.fac_smem) mbar_wait(ffull + fsl, (nt >> 1) & 1);",
      "    if (pass == 0 && p.fac_smem) mbar_wait(ffull + fsl, (nt >> 1) & 1);\n    "
      + _add(0, "clock64() - t_top")),
-    ("    // epilogue: the cuts with the published k-th as it stands now",
+    ("    if (refresh) cut[tid] = fmaxf(cut[tid], pub);",
      "    long long t_ep = clock64();\n    " + _add(7, "1")
-     + "\n    // epilogue: the cuts with the published k-th as it stands now"),
-    ("                          : INFINITY;\n    named_sync(kBarConsumer, kCThreads);",
-     "                          : INFINITY;\n    named_sync(kBarConsumer, kCThreads);\n    "
-     + _add(4, "clock64() - t_ep") + "\n    t_ep = clock64();"),
+     + "\n    if (refresh) cut[tid] = fmaxf(cut[tid], pub);\n    " + _add(4, "clock64() - t_ep")
+     + "\n    t_ep = clock64();"),
     ("    bool any = false;",
      "    " + _add(5, "clock64() - t_ep") + "\n    t_ep = clock64();\n    bool any = false;"),
+    ("    if (named_sync_or(kBarConsumer, kCThreads, any)) {",
+     "    " + _add(6, "clock64() - t_ep") + "\n    t_ep = clock64();\n"
+     "    if (named_sync_or(kBarConsumer, kCThreads, any)) {"),
     ("      fold(kFoldAt);\n      named_sync(kBarConsumer, kCThreads);\n    }\n",
      "      fold(kFoldAt);\n      named_sync(kBarConsumer, kCThreads);\n      " + _add(9, "1")
-     + "\n    }\n    " + _add(6, "clock64() - t_ep") + "\n"),
+     + "\n    }\n    " + _add(11, "clock64() - t_ep") + "\n"),
     ("    if (++pass == kPasses) {",
      "    " + _add(10, "clock64() - t_top") + "\n    if (++pass == kPasses) {"),
     ("            mbar_wait(empty + slot, ((it / S) & 1) ^ 1);",
@@ -167,8 +169,9 @@ def report(torch, cs, read, tag, args) -> None:
         parts.append(
             f"warpgroup {wg} per pass: {c[10] / ps:.0f} in all = stage waits {c[1] / ps:.0f} + "
             f"dequant {c[2] / ps:.0f} + wgmma {c[3] / ps:.0f} + pass-start waits "
-            f"{c[0] / ps:.0f} + cuts {c[4] / ps:.0f} + scores {c[5] / ps:.0f} + appends and "
-            f"folds {c[6] / ps:.0f} ({c[9] / ps:.2f} folding) + the rest; per group "
+            f"{c[0] / ps:.0f} + cuts {c[4] / ps:.0f} + scores {c[5] / ps:.0f} + appends "
+            f"{c[6] / ps:.0f} + barrier and folds {c[11] / ps:.0f} ({c[9] / ps:.2f} with a "
+            f"candidate) + the rest; per group "
             f"dequant {c[2] / ks:.0f}, wgmma {c[3] / ks:.0f}")
     st = max(v[34], 1)
     print(f"{tag} (width {width}, {v[7]} passes, {v[8]} groups): " + "; ".join(parts)

@@ -89,13 +89,22 @@
 //     registers and B the swizzled query tile: one group an m64 tile, two
 //     fragment buffers, one group in flight while the next is dequantized.
 //     A stage's slot is released once the group after its last one is
-//     issued.  After a pass: scores, the `limit` mask, and admission against
+//     issued.
+//   the pass epilogue: scores, the `limit` mask, and admission against
 //     per-query cuts (the larger of the block's k-th and the published one;
 //     a score equal to the block's k-th is admitted only where its id ranks
 //     before that entry's, since a pass's rows are not in id order); the
 //     admitted ones are appended to a global scratch of k + 320 entries a
 //     query (L2), and a warp merges a query's candidates in registers
-//     (warp_fold_regs) once it holds 64.
+//     (warp_fold_regs) once it holds 64.  The metric is chosen once a pass,
+//     outside the round over the pass's W sums a thread.  The published
+//     k-th is read once a tile; it and the folds raise the cuts, which are
+//     read with no barrier: a cut only rises, so a stale one admits a
+//     superset, which the fold sorts out.  Top-k lists of each consumer
+//     warpgroup with barriers of their own, and admission appended inside
+//     the round instead of through `held` (local memory written only for
+//     admitted scores), both measured slower on the SAQ cells' shapes
+//     (PERF.md).
 // Bound (H100): 2*Q*N*D bf16 operations at 989 TFLOP/s, or the words and
 // factors read once at 3.35 TB/s (4.85 ms at Q=64, N=53.2M, D=704 coded
 // dims: operations).  What the pipeline spends instead (PERF.md; cycles by
@@ -133,6 +142,7 @@
 #include <climits>
 #include <math.h>
 #include <stdint.h>
+#include <type_traits>
 
 #include "topk.cuh"
 #include "wgmma.cuh"
@@ -865,6 +875,7 @@ packed_scan_bf16_kernel(const __grid_constant__ Params p) {
     thr_s[tid] = -INFINITY;
     thr_i[tid] = INT_MAX;
     n_cand[tid] = 0;
+    cut[tid] = tid < nq ? -INFINITY : INFINITY;  // padding queries admit nothing
   }
   if (tid == 0) {
     for (int i = 0; i < kMaxStages; ++i) {
@@ -993,6 +1004,10 @@ packed_scan_bf16_kernel(const __grid_constant__ Params p) {
     if (t < 0) break;
     const int fsl = nt & 1;
     if (pass == 0 && p.fac_smem) mbar_wait(ffull + fsl, (nt >> 1) & 1);
+    // the published k-th of query tid, once a tile: loaded now, read after
+    // the pass
+    const bool refresh = pass == 0 && tid < nq;
+    const float pub = refresh ? from_ordered_bits(__ldcg(p.kth_g + q0 + tid)) : -INFINITY;
     auto column = [&](int c) -> const float* {  // factor column c of the tile
       return p.fac_smem ? f_ring + (size_t)(fsl * p.nfc + c) * kTile
                         : p.fac + (size_t)p.fcol[c] * p.N + (size_t)t * kTile;
@@ -1034,11 +1049,10 @@ packed_scan_bf16_kernel(const __grid_constant__ Params p) {
     for (int mt = 0; mt < kMT; ++mt) fence_regs(ps.acc[mt]);
     if (lane == 0) mbar_arrive(empty + ps.held);
     ps.held = -1;
-    // epilogue: the cuts with the published k-th as it stands now
-    if (tid < W)
-      cut[tid] = tid < nq ? fmaxf(thr_s[tid], from_ordered_bits(__ldcg(p.kth_g + q0 + tid)))
-                          : INFINITY;
-    named_sync(kBarConsumer, kCThreads);
+    // epilogue.  The cuts are read with no barrier after this update: a cut
+    // only rises (here and in the folds), so a thread that reads one before
+    // it admits a superset, which the fold sorts out.
+    if (refresh) cut[tid] = fmaxf(cut[tid], pub);
     // one round over the pass: 2 rows of each m64 tile x W / 4 queries a
     // thread, the rows' score terms
     int row[kRows];
@@ -1057,33 +1071,41 @@ packed_scan_bf16_kernel(const __grid_constant__ Params p) {
       }
     }
     // scores compared with the cut first, the admitted ones (kept in
-    // `held`) appended after
+    // `held`) appended after.  The metric is chosen outside the round: a
+    // test of it inside let the compiler compute NIP's division for every
+    // score, whatever the metric.
     constexpr int kHeld = kMT * W / 2, kWords = kHeld / 32;
     uint32_t adm[kWords];
     float held[kHeld];
 #pragma unroll
     for (int w = 0; w < kWords; ++w) adm[w] = 0u;
+    auto score_round = [&](auto metric) {
+      constexpr int M = decltype(metric)::value;
 #pragma unroll
-    for (int jb = 0; jb < W / 8; ++jb) {
-      const float2 cj = *reinterpret_cast<const float2*>(cut + 8 * jb + 2 * tq);
-      const float2 qj = *reinterpret_cast<const float2*>(qa_s + 8 * jb + 2 * tq);
+      for (int jb = 0; jb < W / 8; ++jb) {
+        const float2 cj = *reinterpret_cast<const float2*>(cut + 8 * jb + 2 * tq);
+        const float2 qj = *reinterpret_cast<const float2*>(qa_s + 8 * jb + 2 * tq);
 #pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
+        for (int mt = 0; mt < kMT; ++mt) {
 #pragma unroll
-        for (int v = 0; v < 4; ++v) {
-          const int a = mt * (W / 2) + 4 * jb + v, s = 2 * mt + (v >> 1);
-          const float ip = ps.acc[mt][4 * jb + v], qa = v & 1 ? qj.y : qj.x;
-          float sc;
-          if (p.metric == kL2) sc = 2.f * ip + qa - term[s];
-          else if (p.metric == kIP) sc = ip + qa;
-          else sc = (ip + qa) / term[s];
-          if (row[s] < p.limit && sc >= (v & 1 ? cj.y : cj.x)) {
-            held[a] = sc;
-            adm[a >> 5] |= 1u << (a & 31);
+          for (int v = 0; v < 4; ++v) {
+            const int a = mt * (W / 2) + 4 * jb + v, s = 2 * mt + (v >> 1);
+            const float ip = ps.acc[mt][4 * jb + v], qa = v & 1 ? qj.y : qj.x;
+            float sc;
+            if constexpr (M == kL2) sc = 2.f * ip + qa - term[s];
+            else if constexpr (M == kIP) sc = ip + qa;
+            else sc = (ip + qa) / term[s];
+            if (row[s] < p.limit && sc >= (v & 1 ? cj.y : cj.x)) {
+              held[a] = sc;
+              adm[a >> 5] |= 1u << (a & 31);
+            }
           }
         }
       }
-    }
+    };
+    if (p.metric == kL2) score_round(std::integral_constant<int, kL2>());
+    else if (p.metric == kIP) score_round(std::integral_constant<int, kIP>());
+    else score_round(std::integral_constant<int, kNIP>());
     bool any = false;
 #pragma unroll
     for (int w = 0; w < kWords; ++w) {
