@@ -134,7 +134,7 @@ def prepare_packed_concat(plan, params, codes, norms=None, row_chunk=131072, sor
     fac = torch.cat([torch.cat(f_chunks, dim=1), nrm_row[None]], dim=0).contiguous()
     return tsaq.PackedCorpus(words=words, factors=fac, num_rows=n, tile_stats=stats,
                              has_norms=norms is not None, perm=perm,
-                             prune_hint=tsaq.prune_hint_from_stats(stats))
+                             prune_hint=pr.prune_hint_from_stats(stats))
 
 
 @pytest.fixture(scope="module", params=[("uniform", 2.0), ("lloyd", 3.0)])

@@ -5,7 +5,8 @@ the device: a tensor is sampled where it lives (on the card, without a host
 round trip), numpy / np.memmap / array-like corpora on the host with the
 same sorted ``default_rng(seed)`` draw as the JAX package, so both packages
 train on the same rows of a host corpus.  ``chunked_min_max`` is the
-per-dimension range that SQ fits, streamed.
+per-dimension range that SQ fits, streamed; ``chunked_mean`` the centroid
+that RaBitQ fits on a row source.
 """
 
 from __future__ import annotations
@@ -61,3 +62,17 @@ def chunked_min_max(x, device, chunk_rows: int = 0):
         lo = torch.minimum(lo, torch.amin(xc, dim=0))
         hi = torch.maximum(hi, torch.amax(xc, dim=0))
     return lo, hi
+
+
+def chunked_mean(x, device, chunk_rows: int = 0) -> torch.Tensor:
+    """The (D,) f32 mean of every row of a row source (anything whose
+    ``x[i0:i1]`` gives numpy or tensor rows), in one pass of ``chunk_rows``
+    rows (default: 256 MB of f32) with one chunk on ``device`` at a time:
+    each chunk's column sums in f64, added in row order, divided by n and
+    rounded to f32 once."""
+    n, d = x.shape
+    chunk_rows = chunk_rows or chunk_rows_for_bytes(d)
+    acc = torch.zeros((d,), dtype=torch.float64, device=device)
+    for start in range(0, n, chunk_rows):
+        acc += torch.sum(as_f32(x[start:start + chunk_rows], device).to(torch.float64), dim=0)
+    return (acc / n).to(torch.float32)

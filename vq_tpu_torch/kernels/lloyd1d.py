@@ -3,8 +3,9 @@
 
 With SORTED samples and sorted levels, Lloyd assignment boundaries are
 midpoints, so per-bin sums and counts are differences of prefix sums at
-``searchsorted`` cut points.  Every column of a batch trains at once (the
-JAX package's ``vmap``), as one batched ``torch.searchsorted``.  Cut points
+``searchsorted`` cut points (in f64 on a card, where CUDA's f32 scan is
+not reproducible).  Every column of a batch trains at once (the JAX
+package's ``vmap``), as one batched ``torch.searchsorted``.  Cut points
 use side ``left`` (``right=False``), as ``jnp.searchsorted`` does.
 """
 
@@ -20,7 +21,12 @@ def _lloyd_sorted_batched(s: torch.Tensor, num_levels: int, iters: int) -> torch
     s = s.to(torch.float32).contiguous()
     c, n = s.shape
     zero = torch.zeros((c, 1), dtype=torch.float32, device=s.device)
-    csum = torch.cat([zero, torch.cumsum(s, dim=1)], dim=1)
+    # on a card the prefix sums run in f64 and are rounded to f32 once:
+    # CUDA's f32 scan of one long row adds its blocks in the order they
+    # finish, so its last bits, and the levels', change from run to run
+    csum = torch.cumsum(s.to(torch.float64), dim=1).to(torch.float32) if s.is_cuda else \
+        torch.cumsum(s, dim=1)
+    csum = torch.cat([zero, csum], dim=1)
     # quantile init: value at rank (j + .5)/L, computed in f32 as JAX does
     ranks = ((torch.arange(num_levels, dtype=torch.float32, device=s.device) + 0.5)
              / num_levels * n).to(torch.int64).clamp(0, n - 1)

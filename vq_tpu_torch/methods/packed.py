@@ -8,13 +8,16 @@ the prune's ``qprune = [qa, ‖q_cat − centre‖]``); ``search_corpus`` and
 use rule, the NIP norm checks, a layout built on the fly, whether the prune
 fires, ``PackedCorpus.last_scan``, the ``perm`` mapping, ``_finalize``);
 ``PackedQuantizer`` gives the three their ``prepare_*`` methods and
-``packed_scan_raw``.
+``packed_scan_raw``.  ``PackedFill`` writes a layout in place chunk by
+chunk (SAQ's and RaBitQ's ``prepare_packed``), with the prune's tile
+stats (``tile_stats``) and hint (``prune_hint_from_stats``).
 """
 
 from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from vq_tpu_torch._device import as_f32
@@ -141,6 +144,95 @@ def dense_topk(route: PackedRoute, queries: torch.Tensor, packed: PackedCorpus, 
     packed.last_scan = {"scan_units": units, "tiles_scanned": out[2] if prune else units}
     ids = out[1] if packed.perm is None else packed.perm[out[1].long()]
     return _finalize(out[0], ids, metric, q_sq)
+
+
+def tile_min_max(v: torch.Tensor, valid: torch.Tensor, empty_min: float, empty_max):
+    """Per-512-row-tile (min, max) of v over valid rows."""
+    vmin = torch.where(valid, v, torch.full_like(v, np.inf)).reshape(-1, TILE).amin(dim=1)
+    vmin = torch.where(torch.isfinite(vmin), vmin, torch.full_like(vmin, empty_min))
+    vmax = torch.where(valid, v, torch.zeros_like(v)).reshape(-1, TILE).amax(dim=1)
+    if empty_max is not None:
+        vmax = torch.where(vmax > 0, vmax, torch.full_like(vmax, empty_max))
+    return vmin, vmax
+
+
+def tile_stats(lo: torch.Tensor, hi: torch.Tensor, margin: torch.Tensor, n: int,
+               norms: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(rows/512, 5) per tile of whole tiles: min of ``lo``, max of ``hi``
+    (the prune's radius bounds), max ``margin``, min and max original row
+    norm (1.0 without norms).  Rows ≥ n are excluded."""
+    valid = torch.arange(lo.shape[0], device=lo.device) < n
+    min_r = tile_min_max(lo, valid, 0.0, None)[0]
+    max_r = torch.where(valid, hi, torch.zeros_like(hi)).reshape(-1, TILE).amax(dim=1)
+    max_me = torch.where(valid, margin, torch.zeros_like(margin)).reshape(-1, TILE).amax(dim=1)
+    if norms is None:
+        min_n, max_n = torch.ones_like(min_r), torch.ones_like(max_r)
+    else:
+        min_n, max_n = tile_min_max(norms.to(torch.float32), valid, 1.0, 1.0)
+    return torch.stack([min_r, max_r, max_me, min_n, max_n], dim=1).to(torch.float32)
+
+
+def prune_hint_from_stats(stats) -> bool:
+    """Can the prune bound ever fire?  Off when the across-tile spread of
+    max ‖r̂‖ is under 5% of its median (host side, once per corpus)."""
+    mr = np.asarray(stats[:, 1].cpu() if isinstance(stats, torch.Tensor) else stats[:, 1])
+    mr = mr[mr > 0]
+    if mr.size < 2:
+        return False
+    med = float(np.median(mr))
+    if med <= 0:
+        return False
+    return bool((mr.max() - mr.min()) / med > 0.05)
+
+
+class PackedFill:
+    """The packed layout of an n-row corpus, allocated once and written in
+    place chunk by chunk (``write``), so no chunk list and no second copy
+    of a word plane exists.  ``convert(rows)`` turns byte rows of whole
+    tiles into (per-segment words or value planes, the (F, rows) factor
+    rows, and per row the prune stats' lower radius, upper radius and
+    margin); factor row F is the original row norm.  At 53.2M rows and
+    D=1024 a plane holds up to 6.81e9 int32 words: torch indexes it with
+    64-bit offsets, the kernel with ``size_t`` ones."""
+
+    def __init__(self, segs: Sequence[SegSpec], num_factors: int, n: int, device, nv: int,
+                 convert: Callable):
+        self.segs, self.n, self.nv, self.convert = tuple(segs), n, nv, convert
+        n_pad = n + (-n) % TILE
+        self.words = tuple(
+            torch.empty((n_pad, s.ln), dtype=torch.float32, device=device)
+            if s.dequant == "values" else
+            torch.empty((n_pad // s.u, s.ln), dtype=torch.int32, device=device)
+            for s in self.segs)
+        self.factors = torch.empty((num_factors + 1, n_pad), dtype=torch.float32, device=device)
+        self.stats = torch.empty((n_pad // TILE, 5), dtype=torch.float32, device=device)
+
+    def write(self, i0: int, rows: torch.Tensor, norms: Optional[torch.Tensor] = None) -> None:
+        """Byte rows for scan positions [i0, i0 + len(rows)), i0 on a tile,
+        padded to whole tiles with zero rows (``limit`` masks them), and
+        their original norms (None: 1.0); rows ≥ ``nv`` stay out of the
+        tile stats."""
+        pad = (-rows.shape[0]) % TILE
+        if pad:
+            rows = torch.nn.functional.pad(rows, (0, 0, 0, pad))
+        i1 = i0 + rows.shape[0]
+        w, f, lo, hi, margin = self.convert(rows)
+        for dst, part, s in zip(self.words, w, self.segs):
+            u = 1 if s.dequant == "values" else s.u
+            dst[i0 // u:i1 // u] = part
+        nf = f.shape[0]
+        self.factors[:nf, i0:i1] = f
+        nrm = self.factors[nf, i0:i1]
+        nrm.fill_(1.0)
+        if norms is not None:
+            nrm[:norms.shape[0]] = norms.to(torch.float32)
+        self.stats[i0 // TILE:i1 // TILE] = tile_stats(
+            lo, hi, margin, self.nv - i0, norms=nrm if norms is not None else None)
+
+    def corpus(self, has_norms: bool, perm=None) -> PackedCorpus:
+        return PackedCorpus(words=self.words, factors=self.factors, num_rows=self.n,
+                            tile_stats=self.stats, has_norms=has_norms, perm=perm,
+                            prune_hint=prune_hint_from_stats(self.stats))
 
 
 class PackedQuantizer(BaseQuantizer):

@@ -1,8 +1,10 @@
 """RaBitQ / Extended RaBitQ — counterpart of ``vq_tpu/methods/rabitq.py``.
 
-Centroid c, seeded random orthogonal rotation P (numpy QR, so it equals
-the JAX package's) and a shared B-bit Gaussian-optimal scalar codebook
-(1-D Lloyd on a seeded N(0,1) sample from a ``torch.Generator``).  Encode:
+Centroid c (a tensor's ``torch.mean``; any other row source's in one
+chunked pass, ``data/sampling.py::chunked_mean``), seeded random orthogonal
+rotation P (numpy QR, so it equals the JAX package's) and a shared B-bit
+Gaussian-optimal scalar codebook (1-D Lloyd on a seeded N(0,1) sample from
+a ``torch.Generator``).  Encode:
 r = x − c, s = (r/‖r‖)·P·√D, per-coordinate nearest level, rescale
 t = ⟨s,ŝ⟩/⟨ŝ,ŝ⟩.  Code rows [packed B-bit indices ‖ ‖r‖ f32 ‖ t f32] are
 byte-identical to the JAX package's.
@@ -11,13 +13,16 @@ Search rotates the QUERIES once: q·x̂ = α·(qP)·ŝ + q·c with the unbiased
 estimator's scale α = ‖r‖√D/(t‖ŝ‖²).  The packed route scans tile-ordered
 words (B ≤ 4, "shared" table) or the f32 value plane (B ≥ 5) with the
 packed kernel, α folded into the dequantized values (factor row 0) and
-c2 = 2α·(ŝ·cP) + ‖r‖² as the L2 shift (factor row 1); ``use_packed=False``
-or k > 128 takes the plain streaming scan.
+c2 = 2α·(ŝ·cP) + ‖r‖² as the L2 shift (factor row 1), written in place
+chunk by chunk (``methods/packed.py::PackedFill``); ``use_packed=False``
+or k > 128 takes the plain streaming scan.  Spans (``utils/trace.py``):
+``rabitq.centroid`` (the chunked pass) and ``rabitq.pack``.
 """
 
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -32,12 +37,20 @@ from vq_tpu_torch.core.packing import (
     packed_bytes,
     unpack_bits,
 )
+from vq_tpu_torch.data.sampling import chunked_mean
 from vq_tpu_torch.kernels.adc import _col_mask, _finalize, _nip_norms, _streaming_topk
 from vq_tpu_torch.kernels.adc import maximize_scores
 from vq_tpu_torch.kernels.lloyd1d import lloyd_1d_normal, quantize_to_levels
 from vq_tpu_torch.kernels.packed_scan import TILE, PackedCorpus, make_segspec, pack_words
-from vq_tpu_torch.methods.packed import PackedQuantizer, PackedRoute, dense_topk, search_corpus
-from vq_tpu_torch.methods.saq import _VALUES_MIN_BITS, _tile_min_max, prune_hint_from_stats
+from vq_tpu_torch.methods.packed import (
+    PackedFill,
+    PackedQuantizer,
+    PackedRoute,
+    dense_topk,
+    search_corpus,
+)
+from vq_tpu_torch.methods.saq import _VALUES_MIN_BITS
+from vq_tpu_torch.utils.trace import span
 
 _ENCODE_CHUNK = 65536
 
@@ -50,10 +63,16 @@ class RaBitQParams(NamedTuple):
 
 def fit(x, cfg: RaBitQConfig, device=None) -> RaBitQParams:
     """Centroid of x, the seeded rotation and the Gaussian level table, on
-    ``device`` (default: x's device, or the card for host data)."""
+    ``device`` (default: x's device, or the card for host data).  x: a
+    tensor, or any row source (``index/flat.py``), whose centroid is taken
+    chunk by chunk (``chunked_mean``)."""
     device = device_of(x, device)
     d = x.shape[1]
-    centroid = torch.mean(as_f32(x, device), dim=0)
+    if isinstance(x, torch.Tensor):
+        centroid = torch.mean(as_f32(x, device), dim=0)
+    else:
+        with span("rabitq.centroid"):
+            centroid = chunked_mean(x, device)
     q, _ = np.linalg.qr(np.random.default_rng(cfg.seed).standard_normal((d, d)))
     rotation = torch.from_numpy(q.astype(np.float32)).to(device)
     levels = lloyd_1d_normal(1 << cfg.num_bits, seed=cfg.seed, device=device)
@@ -130,42 +149,31 @@ def _convert_rows(params: RaBitQParams, rows: torch.Tensor, num_bits: int, seg, 
     return w, torch.stack([alpha, c2]), nrm, alpha * torch.sqrt(snorm_sq)
 
 
+def _fill_rows(params: RaBitQParams, num_bits: int, seg, c_rot, rows: torch.Tensor):
+    """``_convert_rows`` in ``PackedFill``'s terms: the radius bounds are ‖r‖
+    and α‖ŝ‖, with no margin."""
+    w, f, nrm, r = _convert_rows(params, rows, num_bits, seg, c_rot)
+    return (w,), f, nrm, r, torch.zeros_like(nrm)
+
+
 def prepare_packed(params: RaBitQParams, codes: torch.Tensor, num_bits: int,
                    norms: Optional[torch.Tensor] = None, row_chunk: int = 131072) -> PackedCorpus:
-    """Byte rows → PackedCorpus.  factors (3, N_pad) feature-major = (α, c2,
+    """Byte rows → PackedCorpus, written in place ``row_chunk`` rows at a
+    time (``PackedFill``; the pad rows parse to idx 0 / ‖r‖ 0 / t 0 and
+    ``limit`` masks them).  factors (3, N_pad) feature-major = (α, c2,
     original norm or 1); tile stats = (min ‖r‖, max α‖ŝ‖, 0 margin, norm
     envelope)."""
-    dev = codes.device
     n = codes.shape[0]
     row_chunk = max(TILE, row_chunk - row_chunk % TILE)
-    n_pad = n + (-n) % TILE
     seg = _packed_segspec(params.centroid.shape[0], num_bits)
     c_rot = params.centroid @ params.rotation
-    w_chunks, f_chunks, n_chunks, r_chunks = [], [], [], []
-    for i0 in range(0, n_pad, row_chunk):
-        i1 = min(i0 + row_chunk, n_pad)
-        rows = codes[i0: min(i1, n)]
-        if i1 > n:  # zero rows parse to idx 0 / ‖r‖ 0 / t 0; `limit` masks them
-            rows = torch.nn.functional.pad(rows, (0, 0, 0, i1 - max(i0, n)))
-        w, f, nr, r = _convert_rows(params, rows, num_bits, seg, c_rot)
-        w_chunks.append(w)
-        f_chunks.append(f)
-        n_chunks.append(nr)
-        r_chunks.append(r)
-    valid = torch.arange(n_pad, device=dev) < n
-    min_r, _ = _tile_min_max(torch.cat(n_chunks), valid, 0.0, None)
-    max_r = torch.where(valid, torch.cat(r_chunks), 0.0).reshape(-1, TILE).amax(dim=1)
-    nrm_row = torch.ones((n_pad,), dtype=torch.float32, device=dev)
-    if norms is None:
-        min_n, max_n = torch.ones_like(min_r), torch.ones_like(max_r)
-    else:
-        nrm_row[:n] = norms.to(torch.float32)
-        min_n, max_n = _tile_min_max(nrm_row, valid, 1.0, 1.0)
-    stats = torch.stack([min_r, max_r, torch.zeros_like(max_r), min_n, max_n], dim=1)
-    fac = torch.cat([torch.cat(f_chunks, dim=1), nrm_row[None]], dim=0).contiguous()
-    return PackedCorpus(words=(torch.cat(w_chunks),), factors=fac, num_rows=n,
-                        tile_stats=stats.to(torch.float32), has_norms=norms is not None,
-                        prune_hint=prune_hint_from_stats(stats))
+    with span("rabitq.pack"):
+        fill = PackedFill((seg,), 2, n, codes.device, n,
+                          partial(_fill_rows, params, num_bits, seg, c_rot))
+        for i0 in range(0, n, row_chunk):
+            fill.write(i0, codes[i0:i0 + row_chunk],
+                       None if norms is None else norms[i0:i0 + row_chunk])
+        return fill.corpus(norms is not None)
 
 
 def packed_route(params: RaBitQParams, num_bits: int) -> PackedRoute:

@@ -44,9 +44,14 @@ from vq_tpu_torch.kernels.adc import maximize_scores
 from vq_tpu_torch.kernels.lloyd1d import lloyd_1d, lloyd_1d_columns, quantize_to_levels
 from vq_tpu_torch.kernels.lloyd1d import quantize_to_levels_per_dim
 from vq_tpu_torch.kernels.packed_scan import TILE, PackedCorpus, make_segspec, pack_words
-from vq_tpu_torch.methods.packed import PackedQuantizer, PackedRoute, dense_topk, search_corpus
-from vq_tpu_torch.methods.saq import (_VALUES_MIN_BITS, _codebook_exact, _tile_stats,
-                                     prune_hint_from_stats)
+from vq_tpu_torch.methods.packed import (
+    PackedQuantizer,
+    PackedRoute,
+    dense_topk,
+    prune_hint_from_stats,
+    search_corpus,
+)
+from vq_tpu_torch.methods.saq import _VALUES_MIN_BITS, _codebook_exact, _tile_stats
 
 _ENCODE_CHUNK = 16384  # rows per encode step (the dense bit stream is (rows, Σb))
 

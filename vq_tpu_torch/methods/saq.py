@@ -51,8 +51,15 @@ from vq_tpu_torch.kernels.caq import (
 from vq_tpu_torch.kernels.lloyd1d import lloyd_1d_columns, lloyd_1d_sorted
 from vq_tpu_torch.kernels.packed_scan import MAX_K, TILE, PackedCorpus, make_segspec, pack_words
 from vq_tpu_torch.kernels.topk import ordered_topk
-from vq_tpu_torch.methods.packed import PackedQuantizer, PackedRoute, dense_topk, packed_scan
-from vq_tpu_torch.methods.packed import search_corpus
+from vq_tpu_torch.methods.packed import (
+    PackedFill,
+    PackedQuantizer,
+    PackedRoute,
+    dense_topk,
+    packed_scan,
+    search_corpus,
+    tile_stats,
+)
 
 _ENCODE_CHUNK = 65536  # rows per encode step (bounds the CAQ temporaries)
 
@@ -376,41 +383,12 @@ def packed_segspecs(plan: SAQPlan, params: SAQParams):
     return tuple(segs), tuple(lv_list)
 
 
-def _tile_min_max(v: torch.Tensor, valid: torch.Tensor, empty_min: float, empty_max):
-    """Per-512-row-tile (min, max) of v over valid rows."""
-    vmin = torch.where(valid, v, torch.full_like(v, np.inf)).reshape(-1, TILE).amin(dim=1)
-    vmin = torch.where(torch.isfinite(vmin), vmin, torch.full_like(vmin, empty_min))
-    vmax = torch.where(valid, v, torch.zeros_like(v)).reshape(-1, TILE).amax(dim=1)
-    if empty_max is not None:
-        vmax = torch.where(vmax > 0, vmax, torch.full_like(vmax, empty_max))
-    return vmin, vmax
-
-
 def _tile_stats(rhat_sq: torch.Tensor, me: torch.Tensor, n: int,
                 norms: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(N_pad/512, 5) per tile: min ‖r̂‖, max ‖r̂‖, max error margin, min and
     max original row norm (1.0 without norms).  Rows ≥ n are excluded."""
-    valid = torch.arange(rhat_sq.shape[0], device=rhat_sq.device) < n
-    min_r, max_r = _tile_min_max(torch.sqrt(torch.clamp(rhat_sq, min=0.0)), valid, 0.0, None)
-    max_me = torch.where(valid, me, torch.zeros_like(me)).reshape(-1, TILE).amax(dim=1)
-    if norms is None:
-        min_n, max_n = torch.ones_like(min_r), torch.ones_like(max_r)
-    else:
-        min_n, max_n = _tile_min_max(norms.to(torch.float32), valid, 1.0, 1.0)
-    return torch.stack([min_r, max_r, max_me, min_n, max_n], dim=1).to(torch.float32)
-
-
-def prune_hint_from_stats(stats) -> bool:
-    """Can the prune bound ever fire?  Off when the across-tile spread of
-    max ‖r̂‖ is under 5% of its median (host side, once per corpus)."""
-    mr = np.asarray(stats[:, 1].cpu() if isinstance(stats, torch.Tensor) else stats[:, 1])
-    mr = mr[mr > 0]
-    if mr.size < 2:
-        return False
-    med = float(np.median(mr))
-    if med <= 0:
-        return False
-    return bool((mr.max() - mr.min()) / med > 0.05)
+    r = torch.sqrt(torch.clamp(rhat_sq, min=0.0))
+    return tile_stats(r, r, me, n, norms)
 
 
 def _row_norm_key(plan: SAQPlan, codes: torch.Tensor) -> torch.Tensor:
@@ -459,51 +437,17 @@ def _convert_rows(plan: SAQPlan, params: SAQParams, rows: torch.Tensor):
     return tuple(words), torch.stack(fac_rows + r2_rows), rhat_sq, me
 
 
-class _PackedFill:
-    """The packed layout of an n-row corpus, allocated once and written in
-    place chunk by chunk (``write``), so no chunk list and no second copy
-    of a word plane exists.  At 53.2M rows and D=1024 a plane holds up to
-    2.13e9 int32 words: torch indexes it with 64-bit offsets, the kernel
-    with ``size_t`` ones."""
+def _fill_rows(plan: SAQPlan, params: SAQParams, rows: torch.Tensor):
+    """``_convert_rows`` in ``PackedFill``'s terms: the radius bounds both
+    ‖r̂‖."""
+    w, f, rhat_sq, me = _convert_rows(plan, params, rows)
+    r = torch.sqrt(torch.clamp(rhat_sq, min=0.0))
+    return w, f, r, r, me
 
-    def __init__(self, plan: SAQPlan, params: SAQParams, n: int, device, nv: int):
-        self.plan, self.params, self.n, self.nv = plan, params, n, nv
-        self.segs = packed_segspecs(plan, params)[0]
-        n_pad = n + (-n) % TILE
-        self.words = tuple(
-            torch.empty((n_pad, s.ln), dtype=torch.float32, device=device)
-            if s.dequant == "values" else
-            torch.empty((n_pad // s.u, s.ln), dtype=torch.int32, device=device)
-            for s in self.segs)
-        self.factors = torch.empty((2 * plan.num_segments + 1, n_pad), dtype=torch.float32,
-                                   device=device)
-        self.stats = torch.empty((n_pad // TILE, 5), dtype=torch.float32, device=device)
 
-    def write(self, i0: int, rows: torch.Tensor, norms: Optional[torch.Tensor] = None) -> None:
-        """Byte rows for scan positions [i0, i0 + len(rows)), i0 on a tile,
-        padded to whole tiles with zero rows (idx 0 / rescale 0; ``limit``
-        masks them), and their original norms (None: 1.0)."""
-        pad = (-rows.shape[0]) % TILE
-        if pad:
-            rows = torch.nn.functional.pad(rows, (0, 0, 0, pad))
-        i1 = i0 + rows.shape[0]
-        w, f, r, m = _convert_rows(self.plan, self.params, rows)
-        for dst, part, s in zip(self.words, w, self.segs):
-            u = 1 if s.dequant == "values" else s.u
-            dst[i0 // u:i1 // u] = part
-        s2 = f.shape[0]
-        self.factors[:s2, i0:i1] = f
-        nrm = self.factors[s2, i0:i1]
-        nrm.fill_(1.0)
-        if norms is not None:
-            nrm[:norms.shape[0]] = norms.to(torch.float32)
-        self.stats[i0 // TILE:i1 // TILE] = _tile_stats(
-            r, m, self.nv - i0, norms=nrm if norms is not None else None)
-
-    def corpus(self, has_norms: bool, perm=None) -> PackedCorpus:
-        return PackedCorpus(words=self.words, factors=self.factors, num_rows=self.n,
-                            tile_stats=self.stats, has_norms=has_norms, perm=perm,
-                            prune_hint=prune_hint_from_stats(self.stats))
+def _packed_fill(plan: SAQPlan, params: SAQParams, n: int, device, nv: int) -> PackedFill:
+    return PackedFill(packed_segspecs(plan, params)[0], 2 * plan.num_segments, n, device, nv,
+                      partial(_fill_rows, plan, params))
 
 
 def prepare_packed(plan: SAQPlan, params: SAQParams, codes: torch.Tensor,
@@ -515,7 +459,7 @@ def prepare_packed(plan: SAQPlan, params: SAQParams, codes: torch.Tensor,
     row norm for Metric.NIP (1.0 when absent) — and the prune tile stats
     (min/max ‖r̂‖, the CAQ error margin Σ_s fac_error_s/‖o_s‖ rebuilt from
     the stored factors, the norm envelope), written in place ``row_chunk``
-    rows at a time (``_PackedFill``).
+    rows at a time (``methods/packed.py::PackedFill``).
 
     sort_rows=True NORM-ORDERS the rows (a stable sort by the stored
     o_l2norm key) so that tiles span narrow norm bands and the prune bound
@@ -537,7 +481,7 @@ def prepare_packed(plan: SAQPlan, params: SAQParams, codes: torch.Tensor,
             norms = norms[order]
         perm = order.to(torch.int32)
     row_chunk = max(TILE, row_chunk - row_chunk % TILE)
-    fill = _PackedFill(plan, params, n, dev, nv)
+    fill = _packed_fill(plan, params, n, dev, nv)
     for i0 in range(0, n, row_chunk):
         i1 = min(i0 + row_chunk, n)
         fill.write(i0, codes[i0:i1] if order is None else codes[order[i0:i1]],
@@ -555,7 +499,7 @@ def fill_packed(plan: SAQPlan, params: SAQParams, n: int,
     chunk by chunk.  Equals ``prepare_packed`` over all n rows (no norms,
     no norm order) bit for bit."""
     row_chunk = max(TILE, row_chunk - row_chunk % TILE)
-    fill = _PackedFill(plan, params, n, torch.device(device), n)
+    fill = _packed_fill(plan, params, n, torch.device(device), n)
     filled = 0
     for i0, codes in code_chunks:
         if i0 != filled or i0 % TILE or i0 + codes.shape[0] > n:
