@@ -44,8 +44,10 @@ Phases (any failure exits non-zero; nothing is caught):
    multiples of 16 against the plain bf16 version, and every query-tile
    width (Q = 1, 64, 65, 1024) dense, with the prune and through tile
    masks (every tile, 25%, one, none), and planted ties and top-k rows in
-   one consumer warpgroup's tile rows or split across both, whose ids and
-   scores must equal the plain bf16 version's; kernel and plain times
+   one consumer warpgroup's tile rows or split across both, and the
+   "shared" kind (RaBitQ B = 1-4) at D=1024, Q = 64 and 128 on exact
+   values, whose ids and scores must equal the plain bf16 version's, with
+   the register-table launches counted; kernel and plain times
    in bf16 (tensor cores) and f32 (FFMA), each beside its bound.
 7. The SAQ path (``bench.py:248-380`` on the port): FlatQuantizedIndex(SAQ
    bpd=2, PCA) fit, encode and norm-ordered pack, ground truth, search at
@@ -1054,6 +1056,62 @@ def packed_split_cases(torch, dev, tiles, seed=17):
             f"{tiles} tiles): ids and scores = plain bf16")
 
 
+def packed_shared_cases(torch, dev, tiles, d=1024, seed=19):
+    """The bf16 kernel's "shared" kind (RaBitQ B = 1, 2, 3, 4: B_eff 1, 2,
+    4, 4) at the RaBitQ cell's shape -- one segment of d dims, Q = 64
+    (width 64, the register-table dequant) and Q = 128 (width 128) -- on
+    values whose scores are exact in any summation order: levels (2c + 1 -
+    2^B) / 2^B and α = m / 8 (m in 4..15), so every round_bf16(level × α)
+    is the product itself; queries in {±1, ±2}; c2 and qa multiples of
+    1/128.  Seeded random codes at every dim of every row of ``tiles``
+    tiles; L2 and IP, k = 10 and 100, dense and through a mask of about
+    half the tiles: ids and scores must equal the plain bf16 version's bit
+    for bit, and every launch that takes the register-table dequant must
+    count in ``register_table_launches``.  Returns a line for the log."""
+    from vq_tpu_torch.kernels import packed_scan as pk
+
+    g = torch.Generator().manual_seed(seed)
+    n = tiles * pk.TILE
+    sign = 2 * torch.randint(0, 2, (128, d), generator=g) - 1
+    q = (torch.randint(1, 3, (128, d), generator=g) * sign).float().to(dev)
+    qa = (torch.randint(-4096, 4096, (128,), generator=g) / 128).to(dev)
+    fac = torch.stack([torch.randint(4, 16, (n,), generator=g) / 8,
+                       torch.randint(0, 4096, (n,), generator=g) / 128]).to(dev)
+    mask = torch.rand((tiles,), generator=g) < 0.5
+    mask[tiles // 2] = True
+    mask = mask.to(torch.int32).to(dev)
+    made = n_cases = 0
+    before = pk.packed_scan_topk.register_table_launches
+    for bits in (1, 2, 3, 4):
+        seg = pk.make_segspec(bits, d, "shared", 0)
+        lv = ((2 * torch.arange(1 << bits) + 1 - (1 << bits)) / (1 << bits)).reshape(1, -1)
+        codes = torch.randint(0, 1 << bits, (n, d), generator=g)
+        words = (pk.pack_words(codes, bits, seg.beff).to(dev),)
+        del codes
+        for nq in (64, 128):
+            for kind in ("l2", "ip"):
+                for k in (10, 100):
+                    a = dict(q_cat=q[:nq], qa=qa[:nq], words=words, factors=fac,
+                             lv_tables=(lv.to(dev),), segs=(seg,), k=k, family="rabitq",
+                             metric_kind=kind, norm_col=-1, r2_cols=(1,), limit=n,
+                             use_bf16=True, prune=False, tile_stats=None, qprune=None)
+                    for mode, am in (("dense", a), ("gather", {**a, "tile_mask": mask})):
+                        what = f"packed bf16 shared B={bits} Q={nq} {kind} k={k} {mode}"
+                        ks, ki = pk.packed_scan_topk(**am)
+                        ps_, pi = pk.packed_scan_topk_plain(**am)
+                        require(torch.equal(ki.long().cpu(), pi.long().cpu()),
+                                f"{what}: ids differ from the plain bf16 version's")
+                        require(torch.equal(ks.cpu(), ps_.cpu()),
+                                f"{what}: scores differ from the plain bf16 version's")
+                        made += pk.register_table(seg, pk.scan_width(nq))
+                        n_cases += 1
+    require_launches(pk.packed_scan_topk.register_table_launches - before, made,
+                     "packed bf16 shared register-table launches")
+    return (f"bf16 shared kind at D={d} (B = 1-4; Q = 64, 128; L2, IP; k = 10, 100; dense and "
+            f"gather over {tiles} tiles): {n_cases} cases, ids and scores = plain bf16 bit for "
+            f"bit; {made} register-table launches")
+
+
 def phase_packed_edges(torch, dev, q, m, packed, codes):
     """SAQ uniform: limit < k, limit masking, N < 512, k = 1 and 128, planted
     ties; f32 ids must equal the plain version's where separated.  Then bf16
@@ -1061,8 +1119,9 @@ def phase_packed_edges(torch, dev, q, m, packed, codes):
     65 (not multiples of its query tiles), k = 1 and 128, N < 512, and
     segments whose lengths are not multiples of its 16-dim k-steps --
     against the plain bf16 version: ids below the limit and a pooled recall
-    ≥ BF16_MIN_RECALL; every query-tile width (``packed_width_cases``); and
-    top-k rows in one consumer warpgroup's tile rows (``packed_split_cases``)."""
+    ≥ BF16_MIN_RECALL; every query-tile width (``packed_width_cases``);
+    top-k rows in one consumer warpgroup's tile rows (``packed_split_cases``);
+    and the "shared" kind on exact values (``packed_shared_cases``)."""
     from vq_tpu_torch import Metric
     from vq_tpu_torch.bench.tolerance import packed_tol
     from vq_tpu_torch.kernels import packed_scan as pk
@@ -1124,6 +1183,7 @@ def phase_packed_edges(torch, dev, q, m, packed, codes):
             f"packed bf16 edge cases: pooled recall {hits / total} < {BF16_MIN_RECALL}")
     log("[phase 6] " + packed_width_cases(torch, dev))
     log("[phase 6] " + packed_split_cases(torch, dev, tiles=4 * -(-n // 512)))
+    log("[phase 6] " + packed_shared_cases(torch, dev, tiles=-(-n // 512)))
 
 
 def phase_packed_kernels(torch, dev, results, n=100_000, d=1024, nq=256):

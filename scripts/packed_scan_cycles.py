@@ -12,9 +12,12 @@ made from seeded random words with the 53M cell's segment plan ((64, 5),
 (64, 4), (320, 3), (256, 2) bits, uniform, 704 dims, L2): 4,194,304 rows at
 Q=64 with the prune on (the 53M cell's call, a 64-query tile) and 1,048,576
 rows at Q=1024 through a 98.5% tile mask (the IVF cell's, 128-query tiles),
-both at k=10; then chip_smoke.py's phase-6 corpus (N=100,000 lognormal rows,
-D=1024, Q=256, the five configurations, k=10 and 100).  With ``--big`` also
-its phase-7 SAQ corpus (N=1,048,576, norm-ordered and order-preserving).
+both at k=10; the RaBitQ cell's shape (seeded random words of one "shared"
+segment of 1024 dims at B=4, a 16-level table, α and c2 factors, 4,194,304
+rows, Q=64, k=10, L2: the shared-table dequant); then chip_smoke.py's
+phase-6 corpus (N=100,000 lognormal rows, D=1024, Q=256, the five
+configurations, k=10 and 100).  With ``--big`` also its phase-7 SAQ corpus
+(N=1,048,576, norm-ordered and order-preserving).
 
 For each call it prints, for each consumer warpgroup, per pass (256 rows
 of a tile for one query tile): the waits for a stage's words (the
@@ -208,6 +211,29 @@ def cell_corpus(torch, dev, n, seed=5):
     return args
 
 
+def rabitq_corpus(torch, dev, n, seed=7):
+    """Seeded random words of the RaBitQ cell's layout over n rows (one
+    "shared" segment of 1024 dims at B=4, a sorted 16-level table, the α
+    and c2 factor rows); and a maker of packed_scan_topk arguments for nq
+    queries (L2, no prune)."""
+    from vq_tpu_torch.kernels import packed_scan as pk
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    seg = pk.make_segspec(4, 1024, "shared", 0)
+    words = torch.randint(-2**31, 2**31 - 1, (n // seg.u, seg.ln), generator=g, device=dev,
+                          dtype=torch.int32)
+    lv = torch.sort(torch.randn((16,), generator=g, device=dev)).values.reshape(1, 16)
+    fac = torch.rand((2, n), generator=g, device=dev) * 0.1 + 0.02
+
+    def args(nq, k):
+        return dict(q_cat=torch.randn((nq, 1024), generator=g, device=dev) * 0.05,
+                    qa=torch.randn((nq,), generator=g, device=dev), words=(words,),
+                    factors=fac, lv_tables=(lv,), segs=(seg,), k=k, family="rabitq",
+                    metric_kind="l2", norm_col=-1, r2_cols=(1,), limit=None, use_bf16=True,
+                    prune=False, tile_stats=None, qprune=None, tile_mask=None)
+    return args
+
+
 def main() -> int:
     import torch
 
@@ -225,6 +251,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     with tempfile.TemporaryDirectory() as tmp:
         read = build_counted(Path(tmp))
+        args = rabitq_corpus(torch, dev, 1 << 22)
+        report(torch, cs, read, "N=4194304 RaBitQ B=4 shared Q=64 L2 k=10", args(64, 10))
+        del args
         args = cell_corpus(torch, dev, 1 << 22)
         report(torch, cs, read, "N=4194304 53M plan Q=64 L2 k=10 prune", args(64, 10, prune=True))
         del args

@@ -188,6 +188,61 @@ def test_packed_kernel_at_a_partial_query_block(dev):
     assert (pk.packed_scan_topk.launches, pk.packed_scan_topk.gather_launches) == (2, 2)
 
 
+@pytest.mark.parametrize("gather", [False, True])
+@pytest.mark.parametrize("nq", [64, 128])
+@pytest.mark.parametrize("bits", [2, 3, 4])
+def test_shared_kind_values_read_back_bit_for_bit(dev, bits, nq, gather):
+    """The "shared" kind's bf16 values, read back through the scores: one-hot
+    queries under IP with qa = 0 make each score one round_bf16(level × α).
+    Of 3 tiles, 0 and 2 (the tile list [0, 2] in the gather mode) hold in
+    each of 8 calls a window of 128 rows (tile row % 8 = the call) with
+    every code at every dim and α in [0.5, 2); every other row has the most
+    negative level at α = 1e4, so the window is the top-128 of every query.
+    Over the calls every row of both tiles -- each shift slot, both passes
+    -- comes back; ids, order and scores must equal the host's values (f32
+    product, rounded to bf16), bit for bit, at width 64 (Q = 64) and 128."""
+    from vq_tpu_torch.kernels._build import load_library
+
+    n, d, k = 3 * pk.TILE, 72, 128
+    rng = np.random.default_rng(100 * bits + nq)
+    lv = np.sort(rng.uniform(-2.0, 2.0, 1 << bits)).astype(np.float32)
+    lv[0] = -2.5
+    seg = pk.make_segspec(bits, d, "shared", 0)
+    dims = np.arange(nq) % d
+    q = np.zeros((nq, d), dtype=np.float32)
+    q[np.arange(nq), dims] = 1.0
+    qt, qa = torch.from_numpy(q).to(dev), torch.zeros((nq,), device=dev)
+    lvt = torch.from_numpy(lv).reshape(1, -1).to(dev)
+    mask = torch.tensor([1, 0, 1], dtype=torch.int32, device=dev) if gather else None
+    rows = np.arange(n)
+    pk.reset_launch_counts()
+    for call in range(8):
+        win = (rows // pk.TILE != 1) & (rows % 8 == call)
+        codes = np.zeros((n, d), dtype=np.int64)
+        codes[win] = (np.arange(128)[:, None] + np.arange(d)[None, :]) % (1 << bits)
+        alpha = np.full((n,), 1e4, dtype=np.float32)
+        alpha[win] = rng.uniform(0.5, 2.0, 128).astype(np.float32)
+        words = pk.pack_words(torch.from_numpy(codes), bits, seg.beff).to(dev)
+        fac = torch.from_numpy(alpha).reshape(1, n).to(dev)
+        s, ids = pk.packed_scan_topk(qt, qa, (words,), fac, (lvt,), (seg,), k, family="rabitq",
+                                     metric_kind="ip", tile_mask=mask)
+        # the host's values of the window's rows at each query's dim, ranked
+        # by score descending, then id ascending
+        wr = rows[win]
+        val = (torch.from_numpy(lv[codes[wr][:, dims].T]) * torch.from_numpy(alpha[wr])[None, :])
+        val = val.to(torch.bfloat16).float()
+        order = np.lexsort((np.broadcast_to(wr, val.shape), -val.numpy()), axis=1)
+        want_s = torch.gather(val, 1, torch.from_numpy(order))
+        want_i = torch.from_numpy(wr[order].astype(np.int32))
+        assert torch.equal(ids.cpu(), want_i) and torch.equal(s.cpu(), want_s)
+    width = pk.scan_width(nq)
+    assert width == (64 if nq == 64 else 128)
+    regs = load_library().vq_packed_register_table(2, seg.beff, width)
+    assert pk.register_table(seg, width) == bool(regs)
+    assert pk.packed_scan_topk.register_table_launches == (8 if regs else 0)
+    assert pk.packed_scan_topk.launches_by_width == {width: 8}
+
+
 def test_cuda_tile_mask_on_a_cpu_cache_raises(dev):
     seg = pk.make_segspec(2, 32, "uniform", -1)
     q, qa = torch.zeros((3, 32)), torch.zeros((3,))

@@ -336,3 +336,20 @@ def test_reset_launch_counts_clears_the_width_counter():
     tps.reset_launch_counts()
     assert tps.packed_scan_topk.launches_by_width == {}
     assert tps.packed_scan_topk.launches == 0 and tps.packed_scan_topk.gather_launches == 0
+
+
+def test_reset_launch_counts_clears_the_dequant_counter():
+    """The register-table count starts at 0, a plain (CPU) scan adds
+    nothing to it, and the reset clears it."""
+    tps.reset_launch_counts()
+    assert tps.packed_scan_topk.register_table_launches == 0
+    seg = tps.make_segspec(4, 32, "shared", 0)
+    words = torch.zeros((tps.TILE // seg.u, 32), dtype=torch.int32)
+    lv = torch.linspace(-1.0, 1.0, 16).reshape(1, 16)
+    tps.packed_scan_topk(torch.ones((2, 32)), torch.zeros((2,)), (words,),
+                         torch.ones((1, tps.TILE)), (lv,), (seg,), 5, family="rabitq",
+                         metric_kind="ip")
+    assert tps.packed_scan_topk.register_table_launches == 0
+    tps.packed_scan_topk.register_table_launches = 2
+    tps.reset_launch_counts()
+    assert tps.packed_scan_topk.register_table_launches == 0

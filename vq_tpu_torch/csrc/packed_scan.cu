@@ -90,6 +90,20 @@
 //     fragment buffers, one group in flight while the next is dequantized.
 //     A stage's slot is released once the group after its last one is
 //     issued.
+//   the shared-table dequant (the "shared" kind at B_eff <= 4: RaBitQ B <= 4,
+//     at width 64, kRegTableWidth): a thread's 4 rows lie in 4 nibbles of
+//     each word it reads, so once a pass, where the uniform grid reads its
+//     rows' scales, a thread builds for each row the 16 values round(lv[c] x
+//     scale) to bf16 (c the nibble's code) -- the same f32 product and
+//     rounding as the table path, so every fragment and score is
+//     bit-identical to it -- kept as 16 low and 16 high bytes in 8 registers
+//     (32 a thread).  A k-step turns its 4 words into selectors of each row's
+//     4 codes (2 PRMT, 4 SHF/LOP3, then a mask and a half pick of each pair of
+//     rows), and each row's 4 values into its two fragment words by 8 PRMT:
+//     the low and the high bytes looked up among the lower and the upper 8
+//     entries (a nibble's bit 3 is prmt's sign mode, so one lookup indexes 8
+//     bytes), the half picked by that bit, the bytes interleaved.  No load, no
+//     multiply and no convert a value.
 //   the pass epilogue: scores, the `limit` mask, and admission against
 //     per-query cuts (the larger of the block's k-th and the published one;
 //     a score equal to the block's k-th is admitted only where its id ranks
@@ -630,6 +644,27 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
+// Bytes of {b, a} picked by the four selector nibbles of s (bit 3 of a
+// nibble replicates the picked byte's sign instead)
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t s) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(s));
+  return d;
+}
+
+// Widest query tile whose consumers keep the shared kind's tables in
+// registers.  At W = 128 the 32 table registers beside 128 sums a thread
+// spill more (100 / 192 bytes of spill stores / loads against 76 / 128): on
+// an H100 the shared kind at Q = 256 ran 1.73x faster with them, but the
+// uniform kind's gather at Q = 1024 3-4% slower, so W = 128 keeps the table
+// path
+constexpr int kRegTableWidth = 64;
+
+// A segment's dequant reads register tables (the "shared" kind at B_eff <= 4)
+__host__ __device__ constexpr bool register_table(int kind, int beff, int width) {
+  return kind == kShared && beff <= 4 && width <= kRegTableWidth;
+}
+
 // A consumer thread's view of one segment: the staged word rows holding its
 // rows, their shift slots, their scales.  Tile row of the thread's row s in
 // pass pi: rho = r0 + 64 s, r0 = 64 ROWS z + 16 b + CW pi + cq; word row
@@ -656,7 +691,7 @@ struct SegView {
   float sc[kRows];
 
   __device__ __forceinline__ SegView(const Seg& sg, int r0, int cq,
-                                     const float* scale) {
+                                     const float* scale, const float*) {
     const int stride = sg.kdk + kPad;
     auto shift = [&](int s) { return (uint32_t)(BEFF * ((r0 + 64 * s) / RT)); };
 #pragma unroll
@@ -677,6 +712,44 @@ struct SegView {
       msk[m] = m2 << (D * m);
       kor[m] = ex | (1u << (D * m));
       sub[m] = __uint_as_float(ex) + 1.f;
+    }
+  }
+};
+
+// The "shared" kind at B_eff <= 4: RT = 16 B_eff <= 64, so (r0 % 256 < 64)
+// row s's code lies in nibble 4z + s of its word, z = r0 / 256, o = B_eff *
+// (r0 % 64 / RT) bits into the nibble, and bytes 2z, 2z + 1 of a word hold
+// all 4 rows' codes.  Row s's table, indexed by the whole nibble n, holds
+// round(lv[(n >> o) & mask] x scale_s) to bf16 -- the f32 product and the
+// rounding the table path applies to that code -- as its 16 low bytes and
+// its 16 high bytes.
+template <int W, int BEFF>
+struct SegView<W, kShared, BEFF> {
+  static_assert(BEFF <= 4, "one code a nibble");
+  static constexpr int RT = kTile * BEFF / 32;
+  int off;                                // word offset of the staged row in a stage
+  uint32_t pick;                          // prmt: bytes 2z, 2z + 1 of two words
+  uint32_t lo[kRows][4], hi[kRows][4];    // row s: bytes of entries 4i .. 4i + 3
+
+  __device__ __forceinline__ SegView(const Seg& sg, int r0, int cq, const float* scale,
+                                     const float* lv) {
+    off = ((r0 % RT) / 16 * kCW + cq) * (sg.kdk + kPad);
+    const int sh = BEFF * (r0 / RT);      // row s's code at bit sh + 4 s
+    pick = 0x5140u + 0x2222u * (uint32_t)(sh >> 4);
+    const uint32_t o = sh & 3, mask = (1u << sg.bits) - 1u;
+    float x[16];
+#pragma unroll
+    for (int n = 0; n < 16; ++n) x[n] = lv[(n >> o) & mask];
+#pragma unroll
+    for (int s = 0; s < kRows; ++s) {
+      const float sc = scale != nullptr ? scale[r0 + 64 * s] : 1.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint32_t e01 = pack_bf16(x[4 * i] * sc, x[4 * i + 1] * sc);
+        const uint32_t e23 = pack_bf16(x[4 * i + 2] * sc, x[4 * i + 3] * sc);
+        lo[s][i] = prmt(e01, e23, 0x6420u);
+        hi[s][i] = prmt(e01, e23, 0x7531u);
+      }
     }
   }
 };
@@ -707,6 +780,32 @@ struct KWords {
   }
 };
 
+// The shared kind's k-step: its 16 codes as prmt selectors, sel[h] holding
+// row h in its low half and row 2 + h in its high one, each half the codes
+// of dims c, c + 8, c + 1, c + 9; sel7 with bit 3 of every nibble cleared
+// (the upper 8 entries), half picking byte i of the lower (i) or the upper
+// (4 + i) entries' lookup by that bit.
+template <int W, int BEFF>
+struct KWords<W, kShared, BEFF> {
+  uint32_t sel[2], sel7[2], half[2];
+
+  __device__ __forceinline__ KWords(const SegView<W, kShared, BEFF>& v, const uint32_t* ws,
+                                    int c) {
+    const uint2 lo = *reinterpret_cast<const uint2*>(ws + v.off + c);
+    const uint2 hi = *reinterpret_cast<const uint2*>(ws + v.off + c + 8);
+    // nibbles: x rows 0, 1 of dim c, rows 0, 1 of c + 1, rows 2, 3 of c,
+    // rows 2, 3 of c + 1; y the same of dims c + 8, c + 9
+    const uint32_t x = prmt(lo.x, lo.y, v.pick), y = prmt(hi.x, hi.y, v.pick);
+    sel[0] = (x & 0x0F0F0F0Fu) | ((y << 4) & 0xF0F0F0F0u);
+    sel[1] = ((x >> 4) & 0x0F0F0F0Fu) | (y & 0xF0F0F0F0u);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sel7[h] = sel[h] & 0x77777777u;
+      half[h] = ((sel[h] >> 1) & 0x44444444u) | 0x32103210u;
+    }
+  }
+};
+
 // Fragment a of m64 tile mt, rows 2 mt (g) and 2 mt + 1 (g + 8), from the
 // k-step's words; dim0: the segment dim of c (perdim tables).
 template <int W, int KIND, int BEFF>
@@ -714,33 +813,49 @@ __device__ __forceinline__ void dequant_tile(const SegView<W, KIND, BEFF>& v,
                                              const KWords<W, KIND, BEFF>& kw, const Seg& sg,
                                              const float* lv, int dim0, int mt, uint32_t (&a)[4]) {
   using V = SegView<W, KIND, BEFF>;
+  if constexpr (KIND == kShared) {
+    // each row's table: the lower and the upper 8 entries' bytes looked
+    // up, the right ones kept, low and high bytes interleaved into pairs
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int s = 2 * mt + h, i = s % V::NW, m = s / V::NW;
-    float x[4];
-    if constexpr (KIND == kUniform) {
-      const int g = m / V::GG, mm = m % V::GG;
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        x[e] = __uint_as_float((kw.w[i][g][e] & v.msk[mm]) | v.kor[mm]) - v.sub[mm];
-    } else if constexpr (KIND == kValues) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) x[e] = __uint_as_float(kw.w[i][0][e]);
-    } else {
-      // perdim: the table rows of the 4 dims (the last one past the
-      // segment's end: those dims meet zero queries)
-      const uint32_t mask = (1u << sg.bits) - 1u;
-      const bool perdim = sg.kind == kPerdim;
-      const int de[4] = {0, 1, 8, 9};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float* t = lv + (perdim ? min(dim0 + de[e], sg.ln - 1) << sg.bits : 0);
-        x[e] = t[(kw.w[i][0][e] >> v.sh[s]) & mask];
-      }
+    for (int h = 0; h < 2; ++h) {
+      const int s = 2 * mt + h, sh = 16 * mt;
+      const uint32_t sel = kw.sel[h] >> sh, sel7 = kw.sel7[h] >> sh, half = kw.half[h] >> sh;
+      const uint32_t lo = prmt(prmt(v.lo[s][0], v.lo[s][1], sel),
+                               prmt(v.lo[s][2], v.lo[s][3], sel7), half);
+      const uint32_t hi = prmt(prmt(v.hi[s][0], v.hi[s][1], sel),
+                               prmt(v.hi[s][2], v.hi[s][3], sel7), half);
+      a[h] = prmt(lo, hi, 0x6240u);      // dims c, c + 1
+      a[2 + h] = prmt(lo, hi, 0x7351u);  // dims c + 8, c + 9
     }
-    const float sc = v.sc[s];
-    a[h] = pack_bf16(x[0] * sc, x[1] * sc);
-    a[2 + h] = pack_bf16(x[2] * sc, x[3] * sc);
+  } else {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int s = 2 * mt + h, i = s % V::NW, m = s / V::NW;
+      float x[4];
+      if constexpr (KIND == kUniform) {
+        const int g = m / V::GG, mm = m % V::GG;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          x[e] = __uint_as_float((kw.w[i][g][e] & v.msk[mm]) | v.kor[mm]) - v.sub[mm];
+      } else if constexpr (KIND == kValues) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[e] = __uint_as_float(kw.w[i][0][e]);
+      } else {
+        // perdim: the table rows of the 4 dims (the last one past the
+        // segment's end: those dims meet zero queries)
+        const uint32_t mask = (1u << sg.bits) - 1u;
+        const bool perdim = sg.kind == kPerdim;
+        const int de[4] = {0, 1, 8, 9};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float* t = lv + (perdim ? min(dim0 + de[e], sg.ln - 1) << sg.bits : 0);
+          x[e] = t[(kw.w[i][0][e] >> v.sh[s]) & mask];
+        }
+      }
+      const float sc = v.sc[s];
+      a[h] = pack_bf16(x[0] * sc, x[1] * sc);
+      a[2 + h] = pack_bf16(x[2] * sc, x[3] * sc);
+    }
   }
 }
 
@@ -783,7 +898,7 @@ __device__ __forceinline__ void seg_stages(const Params& p, const Seg& sg, Pass<
                                            const float* scale, const float* lv,
                                            unsigned char* q_ring, unsigned char* w_ring,
                                            uint64_t* full, uint64_t* empty) {
-  const SegView<W, KIND, BEFF> v(sg, r0, cq, scale);
+  const SegView<W, KIND, BEFF> v(sg, r0, cq, scale, lv);
   const int lane = threadIdx.x & 31, c2 = 2 * (lane & 3);
   for (int c0 = 0; c0 < sg.ln; c0 += sg.kdk, ++ps.it) {
     const int slot = ps.it % p.stages;
@@ -1033,6 +1148,14 @@ packed_scan_bf16_kernel(const __grid_constant__ Params p) {
           case 8: VQ_SEG(kUniform, 8); break;
           default: VQ_SEG(kUniform, 16); break;
         }
+      } else if (register_table(sg.kind, sg.beff, W)) {
+        if constexpr (register_table(kShared, 4, W)) {
+          switch (sg.beff) {
+            case 1: VQ_SEG(kShared, 1); break;
+            case 2: VQ_SEG(kShared, 2); break;
+            default: VQ_SEG(kShared, 4); break;
+          }
+        }
       } else {
         switch (sg.beff) {
           case 1: VQ_SEG(kPerdim, 1); break;
@@ -1277,6 +1400,12 @@ int vq_packed_stage_dims() { return 64; }          // the bf16 queries' padding
 int vq_packed_max_segments() { return kMaxSegs; }
 int vq_packed_fold_slots() { return kFoldSlots; }
 int vq_ordered_neg_inf() { return (int)~0xff800000u; }  // ordered bits of -inf
+
+// 1 if a bf16 launch at query-tile width `width` dequantizes a segment of
+// this kind and storage width from register tables, else 0
+int vq_packed_register_table(int kind, int beff, int width) {
+  return register_table(kind, beff, width);
+}
 
 // Resident blocks per SM of a launch with these segments at query-tile
 // width `width` (bf16: 64 or 128; f32 takes kQB) and metric (the

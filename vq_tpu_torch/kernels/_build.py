@@ -117,6 +117,7 @@ _SIGNATURES = {
     "vq_packed_blocks_per_sm": [_P, _I, _I, _I, _I, _I],
     "vq_packed_stage_dims": [],
     "vq_packed_fold_slots": [],
+    "vq_packed_register_table": [_I, _I, _I],
     "vq_packed_scan_topk": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P,
                             _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                             _P],

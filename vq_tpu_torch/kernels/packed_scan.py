@@ -43,8 +43,10 @@ device-side count, so it sizes nothing there.
 bf16 launches take the query-tile width ``scan_width(Q)`` (64 or 128
 queries a block of the wgmma kernel); f32 launches blocks of 64.
 ``packed_scan_topk.launches`` counts launches of the dense kernel,
-``packed_scan_topk.gather_launches`` those of the gather mode, and
-``packed_scan_topk.launches_by_width`` the bf16 launches of either by width.
+``packed_scan_topk.gather_launches`` those of the gather mode,
+``packed_scan_topk.launches_by_width`` the bf16 launches of either by width,
+and ``packed_scan_topk.register_table_launches`` the bf16 launches in which
+a segment took the register-table dequant (``register_table``).
 """
 
 from __future__ import annotations
@@ -67,6 +69,7 @@ _METRICS = {"l2": 0, "ip": 1, "nip": 2}
 _FAMILIES = {"seg": 0, "rabitq": 1}
 _PLAIN_ELEMS = 1 << 26  # plain twin: cap on one (Q, rows) score block
 SCAN_WIDTHS = (64, 128)  # query-tile widths of the bf16 kernel (csrc/packed_scan.cu)
+REGISTER_TABLE_WIDTH = 64  # csrc/packed_scan.cu's kRegTableWidth
 
 
 def scan_width(num_q: int) -> int:
@@ -85,6 +88,14 @@ def scan_width(num_q: int) -> int:
     the rule reads Q alone."""
     need = min(max(num_q, 1), SCAN_WIDTHS[-1])
     return next(w for w in SCAN_WIDTHS if w >= need)
+
+
+def register_table(seg: "SegSpec", width: int) -> bool:
+    """Whether the bf16 kernel at query-tile width ``width`` dequantizes
+    ``seg`` from register tables: the "shared" kind at b_eff ≤ 4, each
+    row's pre-scaled bf16 levels in registers, looked up by byte permutes
+    (csrc/packed_scan.cu's ``register_table``)."""
+    return seg.dequant == "shared" and seg.beff <= 4 and width <= REGISTER_TABLE_WIDTH
 
 
 def _b_eff(bits: int) -> int:
@@ -530,6 +541,8 @@ def _launch(q_cat, qa, words, factors, lv_tables, segs, k, family, metric_kind, 
     if use_bf16:
         by_width = packed_scan_topk.launches_by_width
         by_width[width] = by_width.get(width, 0) + 1
+        packed_scan_topk.register_table_launches += any(register_table(seg, width)
+                                                        for seg in segs)
     if prune:
         return out_s, out_i, scanned[0]
     return out_s, out_i
@@ -538,9 +551,11 @@ def _launch(q_cat, qa, words, factors, lv_tables, segs, k, family, metric_kind, 
 packed_scan_topk.launches = 0
 packed_scan_topk.gather_launches = 0
 packed_scan_topk.launches_by_width = {}
+packed_scan_topk.register_table_launches = 0
 
 
 def reset_launch_counts() -> None:
     packed_scan_topk.launches = 0
     packed_scan_topk.gather_launches = 0
     packed_scan_topk.launches_by_width = {}
+    packed_scan_topk.register_table_launches = 0
